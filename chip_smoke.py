@@ -5,12 +5,19 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels from the sources in this checkout (nvcc, into
-build/repro_torch/), holds each kernel against its plain torch version at
-the shapes of the main path, then runs the main path — testIMAC on the
-paper's 400x120x84x10 sigmoid MLP on MRAM 32x32 arrays, 500 test samples
-— once per solver backend, and checks the card against the port's own
-CPU result. Any failure exits non-zero. The last line of output is
+It builds the four CUDA kernels from the sources in this checkout (nvcc,
+into build/repro_torch/) and holds each against its plain torch version
+at the shapes of its path. Then it drives both main paths:
+
+- testIMAC on the paper's 400x120x84x10 sigmoid MLP on MRAM 32x32
+  arrays, 500 test samples, once per solver backend (the `tridiag` and
+  `gs_fused` kernels), checked against the port's own CPU result;
+- the LM substrate's analog serving path, yi-9b at full width with
+  ``analog_mvm`` (the `imac_mvm` and `decode_attention` kernels): 6
+  requests over 4 slots, then the reduced model on the card against the
+  CPU with the same weights.
+
+Any failure exits non-zero. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -34,6 +41,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # Card peaks used for the bounds (H100 SXM data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+
+# The serving path: yi-9b (K, N) of the FFN projections, the launcher's defaults.
+YI_FFN = ((4096, 11008), (11008, 4096))
+SERVE = dict(requests=6, slots=4, cache_len=256, max_tokens=16)
 
 # Main-path shapes: layer 1 of the 400x120x84x10 MLP on 32x32 arrays is
 # 13x4 tiles of 31x30, x2 for G+/G-, over a chunk of 256 samples.
@@ -77,6 +88,13 @@ def check_close(name, got, want, *, rtol, atol) -> float:
             f"max abs error {float(err.max()):.3g}"
         )
     return float(err.max())
+
+
+def bound_of(bytes_moved: float, flops: float) -> "tuple[float, str]":
+    """The least time (ms) the card could take, and which of the two bounds it."""
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_device():
@@ -151,15 +169,11 @@ def phase_tridiag(gen, cp):
         nodes = n * batch
         bytes_moved = 5 * 4 * nodes          # 4 inputs read once, x written once
         flops = 8 * nodes                    # 6 forward, 2 backward per node
-        t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
-        t_ops = 1e3 * flops / FP32_FLOPS_PER_S
-        out[label] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            n=n, batch=batch,
-        )
+        bound_ms, bound_by = bound_of(bytes_moved, flops)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          n=n, batch=batch)
         log(f"[tridiag] {label}: N={n} B={batch}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({out[label]['bound_by']}: "
+            f"bound {bound_ms:.4f} ms ({bound_by}: "
             f"{bytes_moved / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)")
     return max_err, out
 
@@ -246,10 +260,8 @@ def phase_gs_fused(gen, cp):
     systems = args[0].shape[0]
     bytes_moved = 4 * (10 * nodes + 4 * systems)   # 8 arrays + 3 scalars in, 2 arrays + res out
     flops = (20 * SWEEPS_L1 + 14) * nodes
-    t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    bound_ms, bound_by = bound_of(bytes_moved, flops)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     log(f"[gs_fused] main: {systems} systems of {M_L1}x{N_L1}, {SWEEPS_L1} sweeps: kernel "
         f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {timing['bound_ms']:.4f} ms "
         f"({timing['bound_by']}: {bytes_moved / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
@@ -328,39 +340,47 @@ def phase_main_path(tridiag_ops, fused_ops):
     return params, xte, yte, cfg, launches, walls
 
 
-def phase_profile(params, xte, yte, cfg, walls):
-    """Where the main path's device time goes, per backend (torch.profiler).
+def profile_device(label: str, fn, wall_ms: float, top: int) -> None:
+    """Trace `fn` with torch.profiler and log its device time by kernel.
 
-    The same test_imac call as the main path, traced; device busy time is
-    the sum of the kernels' device times, against the wall time of the
-    untraced run. Launches here are not part of the main path's counts.
+    Device busy time is the sum of the kernels' device times, set against
+    `wall_ms`, the wall time of the same work untraced. Launches made here
+    are not part of any main path's counts.
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.evaluate import test_imac
-    from repro_torch.core.solver import SolveOptions
 
     def device_us(event):
         return getattr(event, "self_device_time_total", 0.0)
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    if busy_ms == 0:
+        log(f"[profile] {label}: the trace holds no device time (not measured)")
+        return
+    log(f"[profile] {label}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall (untraced): "
+        f"idle share {1 - busy_ms / wall_ms:.3f}; {sum(e.count for e in kernels)} device kernels")
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms {device_us(e) / 1e3 / busy_ms:6.1%} "
+            f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def phase_profile(params, xte, yte, cfg, walls):
+    """Where the main path's device time goes, per backend."""
+    from repro_torch.core.evaluate import test_imac
+    from repro_torch.core.solver import SolveOptions
+
     for backend in ("tridiag", "fused"):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            test_imac(params, xte, yte, cfg, n_samples=500, chunk=CHUNK,
-                      solve_options=SolveOptions(backend=backend))
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-        busy_ms = sum(device_us(e) for e in kernels) / 1e3
-        wall_ms = 1e3 * walls[backend]
-        if busy_ms == 0:
-            log(f"[profile] backend={backend}: the trace holds no device time (not measured)")
-            continue
-        log(f"[profile] backend={backend}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-            f"wall (untraced run): idle share {1 - busy_ms / wall_ms:.3f}")
-        for e in sorted(kernels, key=device_us, reverse=True)[:6]:
-            log(f"[profile]   {device_us(e) / 1e3:9.3f} ms {device_us(e) / 1e3 / busy_ms:6.1%} "
-                f"{e.count:6d} calls  {e.key[:90]}")
+        profile_device(
+            f"backend={backend}",
+            lambda: test_imac(params, xte, yte, cfg, n_samples=500, chunk=CHUNK,
+                              solve_options=SolveOptions(backend=backend)),
+            1e3 * walls[backend], top=6)
 
 
 def phase_cpu_vs_card(params, xte, yte, cfg):
@@ -383,6 +403,302 @@ def phase_cpu_vs_card(params, xte, yte, cfg):
             f"predictions (max output diff {diff:.3g}), power within {rel:.3g} relative")
 
 
+def phase_imac_mvm(gen):
+    """The imac_mvm kernel against its plain version; times at M=4 and M=2048."""
+    import torch
+    from repro_torch.kernels.imac_mvm import ops, ref
+
+    def operands(m, k, n, x_dtype=torch.float32):
+        # A little past [0, 1] and [-1, 1], so that clipping is exercised.
+        x = torch.empty((m, k), device="cuda").uniform_(-0.1, 1.1, generator=gen)
+        w = torch.empty((k, n), device="cuda").uniform_(-1.1, 1.1, generator=gen)
+        return x.to(x_dtype), w
+
+    shapes = [(m, k, n) for m in (4, 12) for k, n in YI_FFN] + [(1003, 300, 129)]
+    quants = [(bits, levels) for bits in (0, 4, 8) for levels in (1, 16, 256)]
+    max_err = 0.0
+    for m, k, n in shapes:
+        x, w = operands(m, k, n)
+        worst = 0.0
+        for bits, levels in quants:
+            got = ops.imac_mvm(x, w, dac_bits=bits, levels=levels)
+            want = ref.imac_mvm_ref(x, w, dac_bits=bits, levels=levels)
+            torch.cuda.synchronize()
+            atol = 1e-6 * k * float(x.abs().max()) * float(w.abs().max())
+            worst = max(worst, check_close(f"imac_mvm {m}x{k}x{n} dac={bits} levels={levels}",
+                                           got, want, rtol=1e-5, atol=atol))
+        if m <= 12:   # the serving path hands the kernel bfloat16 activations
+            xb = x.to(torch.bfloat16)
+            got = ops.imac_mvm(xb, w)
+            want = ref.imac_mvm_ref(xb, w)
+            torch.cuda.synchronize()
+            atol = 1e-6 * k * float(xb.float().abs().max()) * float(w.abs().max())
+            worst = max(worst, check_close(f"imac_mvm {m}x{k}x{n} bf16 x", got, want,
+                                           rtol=1e-5, atol=atol))
+        max_err = max(max_err, worst)
+        log(f"[imac_mvm] M={m} K={k} N={n}: dac_bits {{0,4,8}} x levels {{1,16,256}}"
+            f"{' and bf16 x' if m <= 12 else ''}: max abs err {worst:.3g} (rtol 1e-5, "
+            f"atol 1e-6*K*max|x|*max|w|)")
+
+    timing = {}
+    for label, (m, k, n), x_dtype in (("M=4", (4, 4096, 11008), torch.bfloat16),
+                                      ("M=2048", (2048, 4096, 11008), torch.float32)):
+        x, w = operands(m, k, n, x_dtype)
+        xq = ref.dac_quant(x.float(), 8)
+        wq = ref.weight_quant(w, 16)
+        ms = time_ms(lambda: ops.imac_mvm_2d(x, w), reps=20)
+        plain_ms = time_ms(lambda: ref.imac_mvm_ref(x, w), reps=5)
+        library_ms = time_ms(lambda: torch.matmul(xq, wq), reps=20)
+        bytes_moved = x.element_size() * m * k + 4 * k * n + 4 * m * n
+        flops = 2 * m * k * n
+        bound_ms, bound_by = bound_of(bytes_moved, flops)
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[imac_mvm] time {label} K={k} N={n} x {str(x_dtype)[6:]}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.matmul of the quantised f32 operands (TF32 off) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return max_err, timing
+
+
+def phase_decode_attention(gen):
+    """The decode_attention kernel against its plain version; times at B=32, S=8192."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    def operands(b, s, hkv, g, dk, dv, dtype, lens=None):
+        q = torch.randn((b, hkv * g, dk), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, s, hkv, dk), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, s, hkv, dv), generator=gen, device="cuda").to(dtype)
+        if lens is None:
+            lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        return q, k, v, lens
+
+    cases = [("serving B=4 S=256 Hkv=4 G=8 D=128", (4, 256, 4, 8, 128, 128)),
+             ("MLA-like B=2 S=256 Hkv=1 G=8 Dk=576 Dv=512", (2, 256, 1, 8, 576, 512)),
+             # Rows not 16-byte aligned: the kernel's one-element loads.
+             ("S=300 B=3 Hkv=4 G=8 Dk=30 Dv=20", (3, 300, 4, 8, 30, 20))]
+    max_err = 0.0
+    for label, shape in cases:
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            q, k, v, lens = operands(*shape, dtype)
+            got = ops.decode_attention(q, k, v, lens)
+            want = ref.decode_attention_ref(q, k, v, lens)
+            torch.cuda.synchronize()
+            err = check_close(f"decode_attention {label} {dtype}", got.float(), want.float(),
+                              rtol=rtol, atol=rtol)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            log(f"[decode_attention] {label} {str(dtype)[6:]}: lengths {lens.tolist()} "
+                f"block {ops.block_size(shape[3], shape[4], shape[5])}: max abs err {err:.3g} "
+                f"(rtol = atol = {rtol:g})")
+
+    timing = {}
+    for label, (b, s) in (("B=32 S=8192", (32, 8192)), ("B=4 S=256", (4, 256))):
+        hkv, g, d = 4, 8, 128
+        full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        q, k, v, lens = operands(b, s, hkv, g, d, d, torch.bfloat16, lens=full)
+        q4 = q[:, :, None, :]                                   # (B, H, 1, D)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)           # (B, Hkv, S, D) views
+        mask = torch.ones((b, 1, 1, s), dtype=torch.bool, device="cuda")
+        ms = time_ms(lambda: ops.decode_attention(q, k, v, lens), reps=20)
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), reps=5)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+        bytes_moved = 2 * (b * s * hkv * 2 * d + 2 * b * hkv * g * d) + 4 * b
+        flops = 4 * b * hkv * g * s * d
+        bound_ms, bound_by = bound_of(bytes_moved, flops)
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[decode_attention] time {label} Hkv={hkv} G={g} D={d} bf16, full lengths, "
+            f"{b * hkv} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    return max_err, timing
+
+
+def phase_serve(mvm_ops, da_ops):
+    """yi-9b at full width, analog FFN, through `launch.serve.serve`."""
+    import torch
+    from repro_torch.launch.serve import config_for, serve
+
+    cfg = config_for("yi-9b", analog=True)
+    torch.cuda.reset_peak_memory_stats()
+    mvm_ops.launches = 0
+    da_ops.launches = 0
+    t0 = time.perf_counter()
+    res = serve(cfg, device="cuda", seed=0, log=log, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(imac_mvm=mvm_ops.launches, decode_attention=da_ops.launches)
+    st = res.engine.stats
+    bad = [r.rid for r in res.requests if not r.done or len(r.output) != SERVE["max_tokens"]]
+    if bad:
+        raise AssertionError(f"requests {bad} did not finish with {SERVE['max_tokens']} tokens")
+    layers = cfg.n_layers
+    want = dict(imac_mvm=3 * layers * (st.prefills + st.ticks), decode_attention=layers * st.ticks)
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    log(f"[serve] yi-9b full width ({layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"analog_mvm, compute {cfg.compute_dtype}, params {cfg.param_dtype}): "
+        f"{res.tokens} tokens, {res.tokens / res.seconds:.2f} tok/s over the run "
+        f"({res.seconds:.3f} s; build + init + run {wall:.3f} s)")
+    log(f"[serve] {st.prefills} prefills {1e3 * st.prefill_s:.1f} ms "
+        f"({1e3 * st.prefill_s / st.prefills:.2f} ms each); {st.ticks} decode ticks "
+        f"{1e3 * st.decode_s:.1f} ms ({1e3 * st.decode_s / st.ticks:.2f} ms per tick, "
+        f"{SERVE['slots'] * st.ticks / st.decode_s:.1f} slot-tokens/s)")
+    log(f"[serve] launches {launches}: {3 * layers} imac_mvm per prefill and per tick, "
+        f"{layers} decode_attention per tick, over {st.prefills} prefills and {st.ticks} ticks")
+    log(f"[serve] torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    eng = res.engine
+    profile_device("serve decode tick", lambda: eng.model.decode_step(eng.cache, eng._last_tok),
+                   1e3 * st.decode_s / st.ticks, top=8)
+    return launches
+
+
+# Card vs CPU engines: every logits row within rtol 1e-4 and 1e-5 * max|row|
+# (float32 sums in another order), the card's DAC inputs within 1e-5 of
+# the CPU's (one 8-bit level is 3.9e-3), and at least 90% of the tokens
+# compared before any parting.
+ENGINE_RTOL, ENGINE_ATOL, DAC_TOL, MIN_COMPARED = 1e-4, 1e-5, 1e-5, 0.9
+
+
+class RecordingModel:
+    """A model that records the logits rows its engine takes tokens from:
+    one {rid: row} per prefill (requests are admitted in rid order) and
+    per decode tick (the slots that hold a request)."""
+
+    def __init__(self, model):
+        self._model, self.engine, self.events, self._admitted = model, None, [], 0
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def prefill(self, tokens, cache_len):
+        logits, cache = self._model.prefill(tokens, cache_len=cache_len)
+        self.events.append({self._admitted: logits[0, -1].float().cpu()})
+        self._admitted += 1
+        return logits, cache
+
+    def decode_step(self, cache, tokens):
+        logits, cache = self._model.decode_step(cache, tokens)
+        rows = logits[:, 0].float().cpu()
+        self.events.append({req.rid: rows[slot] for slot, req in enumerate(self.engine.slot_req)
+                            if req is not None})
+        return logits, cache
+
+
+def run_engine(model, prompts, dac_inputs, replay):
+    """Serve `prompts` with greedy decoding and record the logits rows.
+
+    Every `imac_mvm` call's normalised activations are appended to
+    `dac_inputs`, or, with `replay`, checked against the recorded ones
+    (DAC_TOL) and replaced by them, so that two runs pick the same DAC
+    level where an input sits at a .5 boundary. Returns (requests,
+    events, max DAC input difference).
+    """
+    from repro_torch.kernels.imac_mvm import ops
+    from repro_torch.serving.engine import Request, ServeConfig, ServingEngine
+
+    orig, calls, worst = ops.imac_mvm, iter(dac_inputs), [0.0]
+
+    def dac_hook(xn, wn, **kw):
+        if not replay:
+            dac_inputs.append(xn.float().cpu())
+            return orig(xn, wn, **kw)
+        want = next(calls)
+        err = float((xn.float().cpu() - want).abs().max())
+        if xn.shape != want.shape or err > DAC_TOL:
+            raise AssertionError(f"DAC inputs {tuple(xn.shape)} differ by {err:.3g} "
+                                 f"(limit {DAC_TOL:g})")
+        worst[0] = max(worst[0], err)
+        return orig(want.to(xn.device, xn.dtype), wn, **kw)
+
+    rec = RecordingModel(model)
+    eng = ServingEngine(rec, ServeConfig(slots=SERVE["slots"], cache_len=SERVE["cache_len"]))
+    rec.engine = eng
+    reqs = [Request(rid=i, prompt=p, max_tokens=SERVE["max_tokens"]) for i, p in enumerate(prompts)]
+    ops.imac_mvm = dac_hook
+    try:
+        eng.run(reqs, max_ticks=10_000)
+    finally:
+        ops.imac_mvm = orig
+    if replay and next(calls, None) is not None:
+        raise AssertionError("the replayed run made fewer imac_mvm calls than the recorded one")
+    return reqs, rec.events, worst[0]
+
+
+def engines_agree(label, run_a, run_b, vocab) -> "tuple[int, int, float]":
+    """Two greedy engine runs agree, row by row in the order tokens were taken.
+
+    Every row of `run_a` is held against `run_b`'s at ENGINE_RTOL plus
+    ENGINE_ATOL * max|row|, the row where the tokens part included (so a
+    parting is a near-tie inside that bound); nothing after the first
+    parting is compared, and at least MIN_COMPARED of the tokens must be.
+    Returns (tokens compared, tokens, max logits difference).
+    """
+    (reqs_a, events_a), (reqs_b, events_b) = run_a, run_b
+    if len(events_a) != len(events_b):
+        raise AssertionError(f"{label}: {len(events_a)} != {len(events_b)} model calls")
+    taken = {r.rid: 0 for r in reqs_b}
+    compared, diff = 0, 0.0
+    for t, (ev_a, ev_b) in enumerate(zip(events_a, events_b)):
+        if ev_a.keys() != ev_b.keys():
+            raise AssertionError(f"{label} call {t}: requests {sorted(ev_a)} != {sorted(ev_b)}")
+        parted = False
+        for rid in ev_b:
+            la, lb = ev_a[rid], ev_b[rid]
+            d = (la[:vocab] - lb[:vocab]).abs()
+            bound = ENGINE_RTOL * lb[:vocab].abs() + ENGINE_ATOL * float(lb[:vocab].abs().max())
+            if bool((d > bound).any()):
+                raise AssertionError(f"{label} call {t} request {rid}: logits differ by "
+                                     f"{float(d.max()):.3g} beyond rtol {ENGINE_RTOL:g} + "
+                                     f"atol {ENGINE_ATOL:g}*max|row|")
+            i = taken[rid]
+            ta, tb = reqs_a[rid].output[i], reqs_b[rid].output[i]
+            if (ta, tb) != (int(la.argmax()), int(lb.argmax())):
+                raise AssertionError(f"{label} request {rid}: token {i} is not its row's argmax")
+            taken[rid] += 1
+            compared += 1
+            diff = max(diff, float(d.max()))
+            parted |= ta != tb
+        if parted:
+            log(f"[serve-cpu] {label}: tokens parted at a near-tie at model call {t}")
+            break
+    total = sum(len(r.output) for r in reqs_b)
+    if compared < MIN_COMPARED * total:
+        raise AssertionError(f"{label}: only {compared} of {total} tokens compared")
+    return compared, total, diff
+
+
+def phase_serve_cpu_vs_card():
+    """yi-9b reduced (2 layers, float32, analog) on the card and on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import config_for
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(config_for("yi-9b", reduced=True, analog=True), n_layers=2)
+    card = build_model(cfg, device="cuda")
+    card.init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    rng = np.random.default_rng(0)   # the launcher's prompts
+    prompts = [rng.integers(0, cfg.vocab, size=(8 + i % 5,)) for i in range(SERVE["requests"])]
+    dac_inputs = []
+    *cpu_run, _ = run_engine(cpu, prompts, dac_inputs, replay=False)
+    *card_run, dac_err = run_engine(card, prompts, dac_inputs, replay=True)
+    compared, total, diff = engines_agree("card vs CPU", card_run, cpu_run, cfg.vocab)
+    log(f"[serve-cpu] yi-9b reduced (2 layers, float32, analog): card and CPU engines agree on "
+        f"{compared} of {total} tokens compared, max logits diff {diff:.3g} (rtol "
+        f"{ENGINE_RTOL:g} + atol {ENGINE_ATOL:g}*max|row|); the card's {len(dac_inputs)} DAC "
+        f"inputs within {dac_err:.3g} of the CPU's, replayed from the CPU run")
+
+
 def main() -> int:
     import torch
 
@@ -392,7 +708,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core.imac import IMACConfig
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.gs_fused import ops as fused_ops
+    from repro_torch.kernels.imac_mvm import ops as mvm_ops
     from repro_torch.kernels.tridiag import ops as tridiag_ops
 
     t_start = time.perf_counter()
@@ -401,9 +719,14 @@ def main() -> int:
     cp = IMACConfig().circuit_params(M_L1, N_L1)
     tri_err, tri_time = phase_tridiag(gen, cp)
     fused_err, fused_time = phase_gs_fused(gen, cp)
+    mvm_err, mvm_time = phase_imac_mvm(gen)
+    da_err, da_time = phase_decode_attention(gen)
     params, xte, yte, cfg, launches, walls = phase_main_path(tridiag_ops, fused_ops)
     phase_profile(params, xte, yte, cfg, walls)
     phase_cpu_vs_card(params, xte, yte, cfg)
+    del params
+    serve_launches = phase_serve(mvm_ops, da_ops)
+    phase_serve_cpu_vs_card()
 
     row = tri_time["row N=30"]
     kernels = [
@@ -420,6 +743,15 @@ def main() -> int:
              ms=fused_time["ms"], plain_ms=fused_time["plain_ms"],
              bound_ms=fused_time["bound_ms"], bound_by=fused_time["bound_by"],
              library_ms=None),
+        dict(name="imac_mvm", route="cuda",
+             source="src/repro_torch/kernels/imac_mvm/csrc/imac_mvm.cu",
+             replaces="src/repro/kernels/imac_mvm/kernel.py:38",
+             launches=serve_launches["imac_mvm"], max_abs_err=mvm_err, **mvm_time["M=4"]),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:30",
+             launches=serve_launches["decode_attention"], max_abs_err=da_err,
+             **da_time["B=32 S=8192"]),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 from typing import Iterable
 
-KERNELS = ("tridiag", "gs_fused")
+KERNELS = ("tridiag", "gs_fused", "imac_mvm", "decode_attention")
 
 _KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNEL_DIR.parents[2] / "build" / "repro_torch"

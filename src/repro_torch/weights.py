@@ -6,7 +6,8 @@ the reference package's trained parameters passed through `np.asarray`
 and z = a @ W + b. `mapped_from_numpy` does the same for pre-computed
 mappings (objects with g_pos, g_neg, w_scale, k, sense_r, v_unit), in the
 form `evaluate_batch` takes as ``mapped=`` (one list per configuration)
-or ``mapped_stacked=`` (one stacked list).
+or ``mapped_stacked=`` (one stacked list). `lm_params_from_numpy` loads
+the reference's LM parameter pytree into the port's `Model`.
 """
 from __future__ import annotations
 
@@ -56,3 +57,47 @@ def mapped_from_numpy(
             )
         )
     return out
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) pairs of a nested dict."""
+    for key, sub in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(sub, dict):
+            yield from _leaves(sub, path + ".")
+        else:
+            yield path, sub
+
+
+@torch.no_grad()
+def lm_params_from_numpy(model, tree) -> None:
+    """Load the reference's LM parameter pytree into `model` in place.
+
+    `tree` is `repro.models.Model.init`'s output with every leaf passed
+    through `np.asarray`: ``{"embed": {"tok", "head"?}, "final_ln":
+    {"scale"}, "stages": [{"l0": {...}, ...} stacked over repeats]}``.
+    Each stage's stacked ``(repeats, ...)`` leaves are sliced per layer.
+    The layouts are the reference's (`wq (E, H, D)`, `wo (H, D, E)`,
+    `head (E, V)`); each array is cast to its parameter's dtype.
+
+    Raises:
+      ValueError: on a missing, unexpected or mis-shaped parameter.
+    """
+    named = dict(_leaves({"embed": tree["embed"], "final_ln": tree["final_ln"]}))
+    idx = 0
+    for stage, st_tree in zip(model.stages, tree["stages"], strict=True):
+        for r in range(stage.repeats):
+            for i in range(len(stage.kinds)):
+                for path, leaf in _leaves(st_tree[f"l{i}"]):
+                    named[f"layers.{idx}.{path}"] = np.asarray(leaf)[r]
+                idx += 1
+    params = dict(model.named_parameters())
+    if set(named) != set(params):
+        raise ValueError(f"parameter mismatch: missing {sorted(set(params) - set(named))}, "
+                         f"unexpected {sorted(set(named) - set(params))}")
+    for name, arr in named.items():
+        p = params[name]
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(p.shape)}")
+        p.copy_(torch.as_tensor(np.array(arr, dtype=np.float32)))

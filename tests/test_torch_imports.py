@@ -1,9 +1,9 @@
 """Import guard: the port and its chip smoke import neither JAX nor `repro`.
 
-The PyTorch port (`src/repro_torch/`) and `chip_smoke.py` must run on a
-machine with no JAX, and must not lean on the reference package, not
-even on its JAX-free modules. The AST of every file is walked, so an
-import inside a function is caught as well.
+The PyTorch port (`src/repro_torch/`, `tools/`) and `chip_smoke.py` must
+run on a machine with no JAX, and must not lean on the reference
+package, not even on its JAX-free modules. The AST of every file is
+walked, so an import inside a function is caught as well.
 """
 import ast
 from pathlib import Path
@@ -13,7 +13,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
 
 
 def _forbidden(module: str) -> bool:
@@ -51,5 +52,9 @@ def test_guard_catches_forbidden_forms():
 def test_guard_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for required in ("src/repro_torch/core/solver.py", "src/repro_torch/kernels/_build.py",
-                     "src/repro_torch/kernels/gs_fused/ops.py", "chip_smoke.py"):
+                     "src/repro_torch/kernels/gs_fused/ops.py", "chip_smoke.py",
+                     "src/repro_torch/models/model.py", "src/repro_torch/serving/engine.py",
+                     "src/repro_torch/kernels/imac_mvm/ops.py",
+                     "src/repro_torch/kernels/decode_attention/ops.py",
+                     "tools/time_imac_mvm_tiles.py"):
         assert required in names
