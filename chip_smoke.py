@@ -97,6 +97,30 @@ def bound_of(bytes_moved: float, flops: float) -> "tuple[float, str]":
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_summary(report: str) -> "list[str]":
+    """One line per kernel of an `nvcc -Xptxas -v` report: its name
+    (demangled with cu++filt where the toolkit has it), registers, spills."""
+    import re
+    import shutil
+
+    entries, entry, spill = [], None, ""
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"spills {m.group(1)} B stored, {m.group(2)} B loaded"
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            entries.append((entry, f"{m.group(1)} registers, {spill}"))
+            entry, spill = None, ""
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    names = [e for e, _ in entries]
+    if names and Path(filt).exists():
+        out = subprocess.run([filt, *names], capture_output=True, text=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = out
+    return [f"{name}: {info}" for name, (_, info) in zip(names, entries)]
+
+
 def phase_device():
     import torch
     from repro_torch.kernels import _build
@@ -112,9 +136,8 @@ def phase_device():
     log(f"[device] nvcc: {nvcc_version}")
     seconds, reports = _build.build_all(ptxas_verbose=True)
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_summary(report):
+            log(f"[build] {name}: {line}")
     log(f"[build] kernels built and loaded in {seconds:.2f} s")
     return smi
 
@@ -403,8 +426,15 @@ def phase_cpu_vs_card(params, xte, yte, cfg):
             f"predictions (max output diff {diff:.3g}), power within {rel:.3g} relative")
 
 
+# Times of the 16x32x64 tile that the split-K route replaced, bf16 x (ms;
+# tools/time_imac_mvm_tiles.py on NVIDIA H100 80GB HBM3, 700.00 W).
+TILE16_MS = {(4, 4096, 11008): 0.3402, (4, 11008, 4096): 0.6727,
+                  (12, 4096, 11008): 0.3682, (12, 11008, 4096): 0.7982}
+
+
 def phase_imac_mvm(gen):
-    """The imac_mvm kernel against its plain version; times at M=4 and M=2048."""
+    """The imac_mvm kernel against its plain version; bitwise relaunches;
+    times at M in {4, 12} on both yi-9b FFN shapes and at M=2048."""
     import torch
     from repro_torch.kernels.imac_mvm import ops, ref
 
@@ -414,7 +444,11 @@ def phase_imac_mvm(gen):
         w = torch.empty((k, n), device="cuda").uniform_(-1.1, 1.1, generator=gen)
         return x.to(x_dtype), w
 
-    shapes = [(m, k, n) for m in (4, 12) for k, n in YI_FFN] + [(1003, 300, 129)]
+    # The serving shapes (decode's M=4, the prefills' M=8-12: buckets 4, 8
+    # and 12, full and partial), then ragged ones: M at the split-K route's
+    # edge and past it, K not a multiple of the splits, N not a multiple of 4.
+    shapes = ([(m, k, n) for m in (4, 8, 10, 12) for k, n in YI_FFN]
+              + [(1003, 300, 129), (16, 4097, 4095), (1, 11008, 129), (17, 4097, 129)])
     quants = [(bits, levels) for bits in (0, 4, 8) for levels in (1, 16, 256)]
     max_err = 0.0
     for m, k, n in shapes:
@@ -427,7 +461,7 @@ def phase_imac_mvm(gen):
             atol = 1e-6 * k * float(x.abs().max()) * float(w.abs().max())
             worst = max(worst, check_close(f"imac_mvm {m}x{k}x{n} dac={bits} levels={levels}",
                                            got, want, rtol=1e-5, atol=atol))
-        if m <= 12:   # the serving path hands the kernel bfloat16 activations
+        if m <= 16:   # the serving path hands the kernel bfloat16 activations
             xb = x.to(torch.bfloat16)
             got = ops.imac_mvm(xb, w)
             want = ref.imac_mvm_ref(xb, w)
@@ -436,28 +470,46 @@ def phase_imac_mvm(gen):
             worst = max(worst, check_close(f"imac_mvm {m}x{k}x{n} bf16 x", got, want,
                                            rtol=1e-5, atol=atol))
         max_err = max(max_err, worst)
-        log(f"[imac_mvm] M={m} K={k} N={n}: dac_bits {{0,4,8}} x levels {{1,16,256}}"
-            f"{' and bf16 x' if m <= 12 else ''}: max abs err {worst:.3g} (rtol 1e-5, "
-            f"atol 1e-6*K*max|x|*max|w|)")
+        log(f"[imac_mvm] M={m} K={k} N={n} ({ops.plan_for(x, w).route}): dac_bits "
+            f"{{0,4,8}} x levels {{1,16,256}}{' and bf16 x' if m <= 16 else ''}: max abs err "
+            f"{worst:.3g} (rtol 1e-5, atol 1e-6*K*max|x|*max|w|)")
+
+    # Two launches on the same inputs give the same bits (no atomics).
+    for m, k, n in [*TILE16_MS, (8, 4096, 11008), (10, 11008, 4096), (16, 4097, 4095),
+                    (2048, 300, 129)]:
+        x, w = operands(m, k, n, torch.bfloat16 if m <= 16 else torch.float32)
+        first, again = ops.imac_mvm_2d(x, w), ops.imac_mvm_2d(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"imac_mvm {m}x{k}x{n}: two launches differ by "
+                                 f"{float((first - again).abs().max()):.3g}")
+    log("[imac_mvm] two launches bit-identical at the four serving shapes, "
+        "8x4096x11008, 10x11008x4096, 16x4097x4095 and 2048x300x129")
 
     timing = {}
-    for label, (m, k, n), x_dtype in (("M=4", (4, 4096, 11008), torch.bfloat16),
-                                      ("M=2048", (2048, 4096, 11008), torch.float32)):
+    cases = [(m, k, n, torch.bfloat16) for m, k, n in TILE16_MS]
+    cases.append((2048, 4096, 11008, torch.float32))
+    for m, k, n, x_dtype in cases:
         x, w = operands(m, k, n, x_dtype)
+        plan = ops.plan_for(x, w)
         xq = ref.dac_quant(x.float(), 8)
         wq = ref.weight_quant(w, 16)
-        ms = time_ms(lambda: ops.imac_mvm_2d(x, w), reps=20)
+        ms = time_ms(lambda: ops.imac_mvm_2d(x, w), reps=50)
         plain_ms = time_ms(lambda: ref.imac_mvm_ref(x, w), reps=5)
-        library_ms = time_ms(lambda: torch.matmul(xq, wq), reps=20)
+        library_ms = time_ms(lambda: torch.matmul(xq, wq), reps=50)
         bytes_moved = x.element_size() * m * k + 4 * k * n + 4 * m * n
         flops = 2 * m * k * n
         bound_ms, bound_by = bound_of(bytes_moved, flops)
-        timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[imac_mvm] time {label} K={k} N={n} x {str(x_dtype)[6:]}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, torch.matmul of the quantised f32 operands (TF32 off) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        timing[(m, k, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+        before = TILE16_MS.get((m, k, n))
+        was = f" (the 16x32x64 tile it replaced: {before:.4f} ms, now {before / ms:.2f}x faster)" \
+            if before else ""
+        log(f"[imac_mvm] time M={m} K={k} N={n} x {str(x_dtype)[6:]}: kernel {ms:.4f} ms"
+            f"{was}, {bytes_moved / ms / 1e9:.3f} TB/s; plain {plain_ms:.4f} ms, torch.matmul "
+            f"of the quantised f32 operands (TF32 off) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP); plan {tuple(plan)}")
     return max_err, timing
 
 
@@ -746,7 +798,8 @@ def main() -> int:
         dict(name="imac_mvm", route="cuda",
              source="src/repro_torch/kernels/imac_mvm/csrc/imac_mvm.cu",
              replaces="src/repro/kernels/imac_mvm/kernel.py:38",
-             launches=serve_launches["imac_mvm"], max_abs_err=mvm_err, **mvm_time["M=4"]),
+             launches=serve_launches["imac_mvm"], max_abs_err=mvm_err,
+             **mvm_time[(4, 4096, 11008)]),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:30",

@@ -155,6 +155,72 @@ def test_analog_linear_read_noise_only_with_a_generator():
     assert torch.equal(pcm, mvm_ops.analog_linear(x, w, None))
 
 
+# The split-K route's launch plan. `_h100_clusters` stands in for the card's
+# occupancy query (cudaOccupancyMaxActiveClusters): 4 blocks per SM for the
+# M <= 8 buckets and 2 above (their registers), less what clusters of
+# `splits` blocks waste on 132 SMs.
+
+
+def _h100_clusters(m_bucket, bn, splits, x_rows):
+    return (4 if m_bucket <= 8 else 2) * 132 // splits
+
+
+YI_FFN = [(4096, 11008), (11008, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 12, 16])
+@pytest.mark.parametrize("k,n", [*YI_FFN, (4097, 4095), (300, 129), (1, 1), (100_000, 64),
+                                 (257, 5)])
+def test_launch_plan_covers_every_row_and_column(m, k, n):
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters)
+    assert plan.route == "splitk" and m <= plan.m_bucket and plan.m_bucket in mvm_ops.M_BUCKETS
+    assert 1 <= plan.splits <= 8                 # the portable cluster size
+    rows = np.zeros(k, dtype=int)
+    for s in range(plan.splits):
+        lo, hi = s * plan.k_chunk, min((s + 1) * plan.k_chunk, k)
+        assert lo < hi                           # no split is empty
+        rows[lo:hi] += 1
+    assert (rows == 1).all()                     # every K row in exactly one split
+    tiles = -(-n // plan.bn)
+    cols = np.zeros(tiles * plan.bn, dtype=int)
+    for t in range(tiles):
+        cols[t * plan.bn:(t + 1) * plan.bn] += 1
+    assert (cols[:n] == 1).all() and (tiles - 1) * plan.bn < n
+    assert plan.blocks == tiles * plan.splits
+    assert 1 <= plan.x_rows <= plan.k_chunk
+    assert 4 * plan.m_bucket * plan.x_rows <= mvm_ops.XS_MAX_BYTES
+    assert plan.waves == -(-plan.blocks // plan.resident)
+
+
+@pytest.mark.parametrize("m", [4, 12])
+@pytest.mark.parametrize("k,n", YI_FFN)
+def test_launch_plan_runs_two_blocks_per_sm_at_the_serving_shapes(m, k, n):
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters, sms=132)
+    assert plan.route == "splitk" and plan.blocks >= 2 * 132
+
+
+def test_launch_plan_fills_whole_waves():
+    # 496 blocks at once (62 clusters of 8): K=11008, N=4096 in 64-column
+    # tiles x 8 splits is 512 blocks, a second wave of 16; 7 splits fit one.
+    plan = mvm_ops.launch_plan(4, 11008, 4096, lambda mb, bn, splits, xr: 496 // splits)
+    assert plan.blocks <= plan.resident and plan.waves == 1 and plan.blocks >= 264
+    assert (plan.bn, plan.splits) != (64, 8)
+
+
+def test_launch_plan_skips_what_does_not_fit_and_raises_when_nothing_does():
+    plan = mvm_ops.launch_plan(4, 4096, 11008, lambda mb, bn, splits, xr: 0 if bn == 128 else 9)
+    assert plan.bn == 64
+    with pytest.raises(ValueError, match="no split-K plan"):
+        mvm_ops.launch_plan(4, 4096, 11008, lambda *a: 0)
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 4096, 11008), (2048, 4096, 11008), (1003, 300, 129)])
+def test_launch_plan_takes_the_64x64_tile_past_m_16(m, k, n):
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters)
+    assert plan.route == "tile64" and plan.m_bucket == 0
+    assert plan.blocks == -(-n // 64) * -(-m // 64)
+
+
 def test_imac_mvm_refuses_other_devices_and_shapes():
     meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="device"):
@@ -255,9 +321,17 @@ def cuda():
     return torch.device("cuda")
 
 
+# M at and around the split-K route's buckets and its edge (16 | 17), K not
+# a multiple of the splits, N not a multiple of 4 (one-float w loads); and
+# the prefills' M = 8 (bucket 8, full) and 10 (bucket 12, partial) at
+# yi-9b's FFN shapes.
+_CARD_SHAPES = [(4, 4096, 11008), (12, 11008, 4096), (1003, 300, 129), (1, 1, 1)] + [
+    (m, k, n) for m in (1, 4, 12, 16, 17) for k in (4097, 11008) for n in (129, 4095)] + [
+    (m, k, n) for m in (8, 10) for k, n in YI_FFN]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (12, 11008, 4096), (1003, 300, 129),
-                                   (1, 1, 1)])
+@pytest.mark.parametrize("m,k,n", _CARD_SHAPES)
 @pytest.mark.parametrize("dac_bits,levels", [(8, 16), (0, 1), (4, 256)])
 def test_imac_mvm_kernel_matches_plain_on_card(cuda, m, k, n, dac_bits, levels):
     x, w = (torch.as_tensor(a, device=cuda) for a in _mvm_inputs(m + k + n, m, k, n))
@@ -267,6 +341,29 @@ def test_imac_mvm_kernel_matches_plain_on_card(cuda, m, k, n, dac_bits, levels):
     torch.cuda.synchronize()
     assert mvm_ops.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (12, 11008, 4096), (16, 4097, 4095),
+                                   (300, 300, 129)])
+def test_imac_mvm_kernel_relaunch_is_bit_identical_on_card(cuda, dtype, m, k, n):
+    x, w = (torch.as_tensor(a, device=cuda) for a in _mvm_inputs(k, m, k, n))
+    x = x.to(dtype)
+    first, again = mvm_ops.imac_mvm(x, w), mvm_ops.imac_mvm(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 12])
+@pytest.mark.parametrize("k,n", YI_FFN)
+def test_imac_mvm_device_plan_runs_two_blocks_per_sm_on_card(cuda, m, k, n):
+    x = torch.zeros((m, k), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((k, n), device=cuda)
+    plan = mvm_ops.plan_for(x, w)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.route == "splitk" and plan.blocks >= 2 * sms and plan.resident > 0
 
 
 @pytest.mark.cuda

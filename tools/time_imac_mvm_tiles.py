@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Time the `imac_mvm` kernel's two tile shapes against each other on a GPU.
+"""Time the `imac_mvm` kernel's two routes against each other on a GPU.
 
     python3 tools/time_imac_mvm_tiles.py
 
-Builds `kernels/imac_mvm/csrc/imac_mvm.cu` twice: as shipped (the skinny
-16x32x64 tile for M <= 16) and with ``-DIMAC_MVM_SKINNY_MAX_M=0`` (the
-64x64x16 tile for every M). At the serving path's row counts (M = 4 at
-decode, 12 at the longest prefill) and yi-9b's FFN shapes, with bfloat16
-activations as the full-width model hands them over, it checks both
-builds against the plain version and prints each one's mean device time
-over 50 launches (CUDA events), the two builds timed in the order
-A B B A. The first line is the card's name and power limit.
+Builds `kernels/imac_mvm/csrc/imac_mvm.cu` as shipped and launches it
+two ways: with the launch plan of `ops.plan_for` (the split-K
+weight-streaming route for M <= 16) and with M bucket 0 (the 64x64x16
+tile, which the kernel takes at any M). At the serving path's row counts
+(M = 4 at decode, 12 at the longest prefill) and yi-9b's FFN shapes, with
+bfloat16 activations as the full-width model hands them over, it checks
+both routes against the plain version and prints each one's mean device
+time over 50 launches (CUDA events), the two routes timed in the order
+A B B A, with the bytes-bound time beside them.
+
+Then, for the split-K route at each shape, where the time goes:
+  * every candidate plan of `ops.splitk_candidates` (column tile, K
+    splits, resident blocks, waves and how full they are), the chosen one
+    marked, so the plan's choice can be held against the alternatives;
+  * the chosen plan with the quantisers reduced to clipping (dac_bits 0,
+    levels 1; no division), once for x, once for w and once for both;
+  * ``w.sum(0)``, a PyTorch call that streams the same 180 MB of w.
+
+The first line is the card's name and power limit.
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -24,17 +34,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SHAPES = [(m, k, n) for m in (4, 12) for k, n in ((4096, 11008), (11008, 4096))]
 REPS = 50
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
-def nvcc_job(tag: str, defines: "list[str]") -> "tuple[list[str], Path]":
-    """The nvcc command of one build variant, and its library path."""
-    from repro_torch.kernels import _build
+def time_ms(fn, reps: int = REPS) -> float:
+    """Mean device time of `fn` over `reps` calls after one warm-up call."""
+    import torch
 
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"libimac_mvm-tiles-{tag}.so"
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
-           str(_build.source("imac_mvm"))]
-    return cmd, out
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -47,20 +62,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    variants = {"skinny<=16": [], "64x64 only": ["-DIMAC_MVM_SKINNY_MAX_M=0"]}
-    jobs = {tag: nvcc_job(tag.split()[0].replace("<=", "le"), d) for tag, d in variants.items()}
-    procs = {tag: subprocess.Popen(cmd) for tag, (cmd, _) in jobs.items()}
-    if any(p.wait() != 0 for p in procs.values()):
-        raise RuntimeError("nvcc failed")
-    libs = {}
-    for tag, (_, out) in jobs.items():
-        lib = ctypes.CDLL(str(out))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.imac_mvm_launch.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32,
-                                        ctypes.c_float, i32, ptr]
-        lib.imac_mvm_launch.restype = ctypes.c_int
-        libs[tag] = lib
-
+    lib = ops._lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
     dac_n, levels, step = ops.quant_args(8, 16)
     for m, k, n in SHAPES:
@@ -69,35 +71,43 @@ def main() -> int:
         w = torch.empty((k, n), device="cuda").uniform_(-1.1, 1.1, generator=gen)
         y = torch.empty((m, n), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
+        plan = ops.plan_for(x, w)
+        tile64 = ops.Plan("tile64", 0, 0, 0, 0, 0, 0)
 
-        def launch(lib):
+        def launch(c):
             err = lib.imac_mvm_launch(x.data_ptr(), 1, w.data_ptr(), y.data_ptr(), m, k, n,
-                                      dac_n, levels, step, 0, stream)
+                                      dac_n, levels, step, c.m_bucket, c.bn, c.splits,
+                                      c.k_chunk, c.x_rows, 0, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed with CUDA error {err}")
 
         want = ref.imac_mvm_ref(x, w)
         atol = 1e-6 * k * float(x.float().abs().max()) * float(w.abs().max())
-        for tag, lib in libs.items():
-            launch(lib)
+        routes = {"split-K": plan, "64x64 tile": tile64}
+        for tag, c in routes.items():
+            launch(c)
             torch.cuda.synchronize()
             if not torch.allclose(y, want, rtol=1e-5, atol=atol):
                 raise AssertionError(f"{tag} M={m} K={k} N={n}: differs from the plain version")
-        times = {tag: [] for tag in libs}
-        for tag in (*libs, *reversed(libs)):
-            lib = libs[tag]
-            launch(lib)
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(REPS):
-                launch(lib)
-            end.record()
-            end.synchronize()
-            times[tag].append(start.elapsed_time(end) / REPS)
+        times = {tag: [] for tag in routes}
+        for tag in (*routes, *reversed(routes)):
+            times[tag].append(time_ms(lambda: launch(routes[tag])))
+        bound_ms = 1e3 * (2 * m * k + 4 * k * n + 4 * m * n) / HBM_BYTES_PER_S
         print(f"M={m} K={k} N={n} bf16 x: " + ", ".join(
-            f"{tag} {' / '.join(f'{t:.4f}' for t in ts)} ms" for tag, ts in times.items()),
-            flush=True)
+            f"{tag} {' / '.join(f'{t:.4f}' for t in ts)} ms" for tag, ts in times.items())
+            + f"; bound {bound_ms:.4f} ms (bytes); plan {tuple(plan)}", flush=True)
+
+        for cand in ops.splitk_candidates(m, k, n, ops.device_clusters(0, True, True)):
+            fill = cand.blocks / (cand.waves * cand.resident)
+            print(f"  plan bn={cand.bn:3d} splits={cand.splits} blocks={cand.blocks:4d} "
+                  f"resident={cand.resident:3d} waves={cand.waves} fill={fill:.3f}: "
+                  f"{time_ms(lambda: launch(cand)):.4f} ms{'  <- chosen' if cand == plan else ''}",
+                  flush=True)
+        quant = {f"dac_bits {b} levels {lv}": time_ms(
+                     lambda: ops.imac_mvm_2d(x, w, dac_bits=b, levels=lv))
+                 for b, lv in ((8, 16), (0, 16), (8, 1), (0, 1))}
+        quant["w.sum(0)"] = time_ms(lambda: w.sum(0))
+        print("  " + ", ".join(f"{key} {t:.4f} ms" for key, t in quant.items()), flush=True)
     return 0
 
 
