@@ -14,8 +14,9 @@ at the shapes of its path. Then it drives both main paths:
   `gs_fused` kernels), checked against the port's own CPU result;
 - the LM substrate's analog serving path, yi-9b at full width with
   ``analog_mvm`` (the `imac_mvm` and `decode_attention` kernels): 6
-  requests over 4 slots, then the reduced model on the card against the
-  CPU with the same weights.
+  requests over 4 slots; then decode ticks at long context (32 slots of
+  a 4096-position cache, lengths 2048-4096), profiled; then the reduced
+  model on the card against the CPU with the same weights.
 
 Any failure exits non-zero. The last line of output is
 
@@ -74,6 +75,39 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced_kernels(fn, reps: int = 1) -> "dict[str, tuple[int, float]]":
+    """Trace `reps` calls of `fn` with torch.profiler: {kernel name: (calls,
+    device ms)} of the device kernels that took time (empty when the trace
+    holds no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and getattr(e, "self_device_time_total", 0) > 0}
+
+
+def device_ms(fn, reps: int) -> "float | None":
+    """Mean device time of `fn` over `reps` calls after one warm-up call:
+    the sum of its kernels' device times in a torch.profiler trace (None
+    when the trace holds none). Unlike `time_ms` it leaves out the host's
+    launch time, which bounds a call whose kernels take a few microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    kernels = traced_kernels(fn, reps)
+    return sum(ms for _, ms in kernels.values()) / reps if kernels else None
+
+
+def shown_ms(ms: "float | None") -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def check_close(name, got, want, *, rtol, atol) -> float:
     """Raise unless |got - want| <= atol + rtol |want| everywhere; max error."""
     import torch
@@ -84,8 +118,8 @@ def check_close(name, got, want, *, rtol, atol) -> float:
     bad = err > atol + rtol * want.abs()
     if bool(bad.any()):
         raise AssertionError(
-            f"{name}: {int(bad.sum())} elements outside rtol={rtol} atol={atol:.3g}; "
-            f"max abs error {float(err.max()):.3g}"
+            f"{name}: {int(bad.sum())} elements outside rtol={rtol} atol="
+            f"{float(torch.as_tensor(atol).max()):.3g}; max abs error {float(err.max()):.3g}"
         )
     return float(err.max())
 
@@ -363,34 +397,25 @@ def phase_main_path(tridiag_ops, fused_ops):
     return params, xte, yte, cfg, launches, walls
 
 
-def profile_device(label: str, fn, wall_ms: float, top: int) -> None:
+def profile_device(label: str, fn, wall_ms: float, top: int) -> "dict[str, float]":
     """Trace `fn` with torch.profiler and log its device time by kernel.
 
     Device busy time is the sum of the kernels' device times, set against
     `wall_ms`, the wall time of the same work untraced. Launches made here
-    are not part of any main path's counts.
+    are not part of any main path's counts. Returns {kernel name: device
+    ms} (empty when the trace holds no device time).
     """
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_us(event):
-        return getattr(event, "self_device_time_total", 0.0)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    kernels = traced_kernels(fn)
+    busy_ms = sum(ms for _, ms in kernels.values())
     if busy_ms == 0:
         log(f"[profile] {label}: the trace holds no device time (not measured)")
-        return
+        return {}
     log(f"[profile] {label}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall (untraced): "
-        f"idle share {1 - busy_ms / wall_ms:.3f}; {sum(e.count for e in kernels)} device kernels")
-    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
-        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms {device_us(e) / 1e3 / busy_ms:6.1%} "
-            f"{e.count:6d} calls  {e.key[:90]}")
+        f"idle share {1 - busy_ms / wall_ms:.3f}; {sum(n for n, _ in kernels.values())} device "
+        "kernels")
+    for name, (calls, ms) in sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:top]:
+        log(f"[profile]   {ms:9.3f} ms {ms / busy_ms:6.1%} {calls:6d} calls  {name[:90]}")
+    return {name: ms for name, (_, ms) in kernels.items()}
 
 
 def phase_profile(params, xte, yte, cfg, walls):
@@ -513,60 +538,141 @@ def phase_imac_mvm(gen):
     return max_err, timing
 
 
+# decode_attention against its plain version. float32: rtol = atol = 1e-5.
+# bfloat16: both round the same float32 sums (up to their order and P's
+# hi + lo split) to bfloat16, so they differ by at most one bfloat16 ulp,
+# <= 2^-7 of the value: within 1e-2 |want|, while two ulps are not; and
+# 1e-3 of the row's largest |want| for float32 sums that cancel near 0.
+F32_TOL, BF16_RTOL, BF16_ROW_ATOL = 1e-5, 1e-2, 1e-3
+
+
 def phase_decode_attention(gen):
-    """The decode_attention kernel against its plain version; times at B=32, S=8192."""
+    """The decode_attention kernel against its plain version at the serving
+    shape and lengths, at long context with ragged lengths, and on the rows
+    route's shapes; bitwise relaunches; times at B=32 (S=8192 and 4096) and
+    at the serving shape (full lengths and the serving path's 9-28)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
 
-    def operands(b, s, hkv, g, dk, dv, dtype, lens=None):
+    def operands(b, s, hkv, g, dk, dv, dtype, kind="random"):
         q = torch.randn((b, hkv * g, dk), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, s, hkv, dk), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, s, hkv, dv), generator=gen, device="cuda").to(dtype)
-        if lens is None:
+        if kind == "full":
+            lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        elif kind == "serving":       # the serving path's lengths at the launcher's defaults
+            lens = torch.randint(9, 29, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        else:
             lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+            if kind == "ragged":      # 1, S, a split boundary, one past it, past S
+                fill = [1, s, s // 8, s // 8 + 1, s + 7][:b]
+                lens[:len(fill)] = torch.tensor(fill, dtype=torch.int32)
         return q, k, v, lens
 
-    cases = [("serving B=4 S=256 Hkv=4 G=8 D=128", (4, 256, 4, 8, 128, 128)),
-             ("MLA-like B=2 S=256 Hkv=1 G=8 Dk=576 Dv=512", (2, 256, 1, 8, 576, 512)),
-             # Rows not 16-byte aligned: the kernel's one-element loads.
-             ("S=300 B=3 Hkv=4 G=8 Dk=30 Dv=20", (3, 300, 4, 8, 30, 20))]
+    def describe(plan):
+        if plan.route == "rows":
+            return f"rows route, {plan.blocks} blocks"
+        return (f"split-KV route, {plan.splits} splits of {plan.chunk} positions, {plan.blocks} "
+                f"blocks, {plan.resident // plan.splits} clusters resident")
+
+    cases = [("serving B=4 S=256 Hkv=4 G=8 D=128", (4, 256, 4, 8, 128, 128), "random"),
+             ("serving lengths B=4 S=256 Hkv=4 G=8 D=128", (4, 256, 4, 8, 128, 128), "serving"),
+             ("B=32 S=8192 Hkv=4 G=8 D=128", (32, 8192, 4, 8, 128, 128), "ragged"),
+             ("B=32 S=4096 Hkv=4 G=8 D=128", (32, 4096, 4, 8, 128, 128), "ragged"),
+             ("MLA-like B=2 S=256 Hkv=1 G=8 Dk=576 Dv=512", (2, 256, 1, 8, 576, 512), "random"),
+             # Rows not 16-byte aligned: the rows route's one-element loads.
+             ("S=300 B=3 Hkv=4 G=8 Dk=30 Dv=20", (3, 300, 4, 8, 30, 20), "random")]
+    def cancelling(b, s, hkv, g, d):
+        """bfloat16 inputs whose output cancels: even positions score m,
+        odd ones m - 6.9e-4 (p = 0.99931, which rounds to 1 in bfloat16),
+        v = +/-1 by the position's parity (times a random sign per
+        dimension), so out = +/-(1 - p) / (1 + p) = +/-3.45e-4 comes only
+        from P's low half."""
+        sign = torch.randint(0, 2, (d,), generator=gen, device="cuda") * 2.0 - 1.0
+        parity = torch.arange(s, device="cuda") % 2
+        q = torch.zeros((b, hkv * g, d), device="cuda")
+        q[..., 0] = 2.0
+        k = torch.zeros((b, s, hkv, d), device="cuda")
+        k[..., 0] = (1.0 - 2.0 ** -8 * parity)[None, :, None]
+        v = (1.0 - 2.0 * parity)[None, :, None, None] * sign * torch.ones((b, s, hkv, d),
+                                                                           device="cuda")
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        return q.bfloat16(), k.bfloat16(), v.bfloat16(), lens
+
     max_err = 0.0
-    for label, shape in cases:
-        for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            q, k, v, lens = operands(*shape, dtype)
-            got = ops.decode_attention(q, k, v, lens)
-            want = ref.decode_attention_ref(q, k, v, lens)
-            torch.cuda.synchronize()
-            err = check_close(f"decode_attention {label} {dtype}", got.float(), want.float(),
-                              rtol=rtol, atol=rtol)
-            if dtype == torch.float32:
-                max_err = max(max_err, err)
-            log(f"[decode_attention] {label} {str(dtype)[6:]}: lengths {lens.tolist()} "
-                f"block {ops.block_size(shape[3], shape[4], shape[5])}: max abs err {err:.3g} "
-                f"(rtol = atol = {rtol:g})")
+    checks = [(label, dtype, lambda shape=shape, dtype=dtype, kind=kind:
+               operands(*shape, dtype, kind))
+              for label, shape, kind in cases for dtype in (torch.float32, torch.bfloat16)]
+    checks.append(("P's low half (cancelling values) B=4 S=256 Hkv=4 G=8 D=128", torch.bfloat16,
+                   lambda: cancelling(4, 256, 4, 8, 128)))
+    for label, dtype, make in checks:
+        q, k, v, lens = make()
+        got = ops.decode_attention(q, k, v, lens)
+        want = ref.decode_attention_ref(q, k, v, lens).float()
+        again = ops.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            rtol, atol = F32_TOL, F32_TOL
+        else:
+            rtol, atol = BF16_RTOL, BF16_ROW_ATOL * want.abs().amax(-1, keepdim=True)
+        err = check_close(f"decode_attention {label} {dtype}", got.float(), want,
+                          rtol=rtol, atol=atol)
+        used = float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attention {label} {dtype}: two launches differ")
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+            tol = f"rtol = atol = {F32_TOL:g}"
+        else:
+            tol = f"rtol {BF16_RTOL:g}, atol {BF16_ROW_ATOL:g} max|row|"
+        shown = (lens.tolist() if len(lens) <= 4
+                 else f"{lens[:5].tolist()} + {len(lens) - 5} more")
+        log(f"[decode_attention] {label} {str(dtype)[6:]}: lengths {shown}; "
+            f"{describe(ops.plan_for(q, k, v))}: max abs err {err:.3g}, max |want| "
+            f"{float(want.abs().max()):.3g}, worst element at {used:.3f} of its tolerance "
+            f"({tol}); relaunch bit-identical")
 
     timing = {}
-    for label, (b, s) in (("B=32 S=8192", (32, 8192)), ("B=4 S=256", (4, 256))):
-        hkv, g, d = 4, 8, 128
-        full = torch.full((b,), s, dtype=torch.int32, device="cuda")
-        q, k, v, lens = operands(b, s, hkv, g, d, d, torch.bfloat16, lens=full)
+    hkv, g, d = 4, 8, 128
+    for label, b, s, lens_kind in (("B=32 S=8192", 32, 8192, "full"),
+                                   ("B=32 S=4096", 32, 4096, "full"),
+                                   ("B=4 S=256", 4, 256, "full"),
+                                   ("B=4 S=256 serving lengths", 4, 256, "serving")):
+        q, k, v, lens = operands(b, s, hkv, g, d, d, torch.bfloat16, lens_kind)
         q4 = q[:, :, None, :]                                   # (B, H, 1, D)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)           # (B, Hkv, S, D) views
-        mask = torch.ones((b, 1, 1, s), dtype=torch.bool, device="cuda")
-        ms = time_ms(lambda: ops.decode_attention(q, k, v, lens), reps=20)
+        mask = torch.arange(s, device="cuda")[None, None, None, :] < lens[:, None, None, None]
+        plan, rows = ops.plan_for(q, k, v), ops.Plan("rows", 0, 0, b * hkv)
+
+        def kernel():
+            return ops.decode_attention(q, k, v, lens)
+
+        def rows_route():
+            return ops.launch(q, k, v, lens, rows)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        ms = time_ms(kernel, reps=50)
+        rows_ms = time_ms(rows_route, reps=20)
         plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), reps=5)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
-        bytes_moved = 2 * (b * s * hkv * 2 * d + 2 * b * hkv * g * d) + 4 * b
-        flops = 4 * b * hkv * g * s * d
+        library_ms = time_ms(library, reps=50)
+        dev = [device_ms(fn, reps=20) for fn in (kernel, rows_route, library)]
+        valid = int(lens.clamp(max=s).sum())     # positions this run's lengths read
+        bytes_moved = 2 * (valid * hkv * 2 * d + 2 * b * hkv * g * d) + 4 * b
+        flops = 4 * valid * hkv * g * d
         bound_ms, bound_by = bound_of(bytes_moved, flops)
         timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[decode_attention] time {label} Hkv={hkv} G={g} D={d} bf16, full lengths, "
-            f"{b * hkv} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        log(f"[decode_attention] time {label} Hkv={hkv} G={g} D={d} bf16, {lens_kind} lengths, "
+            f"{describe(plan)}: kernel {ms:.4f} ms ({bytes_moved / ms / 1e9:.3f} TB/s), rows route "
+            f"{rows_ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        log(f"[decode_attention] device time {label} (torch.profiler, no host launch time): "
+            f"kernel {shown_ms(dev[0])}, rows route {shown_ms(dev[1])}, "
+            f"scaled_dot_product_attention {shown_ms(dev[2])}")
     return max_err, timing
 
 
@@ -608,6 +714,94 @@ def phase_serve(mvm_ops, da_ops):
     profile_device("serve decode tick", lambda: eng.model.decode_step(eng.cache, eng._last_tok),
                    1e3 * st.decode_s / st.ticks, top=8)
     return launches
+
+
+# The long-context decode tick: yi-9b's published 4K context over 32 slots.
+LONG = dict(slots=32, cache_len=4096, min_len=2048, ticks=3)
+
+
+def phase_long_context(da_ops):
+    """yi-9b at full width, analog FFN, one decode tick at a time over 32
+    slots of a 4096-position cache filled from the generator (lengths
+    2048-4096, no prefill): tick wall, device busy time and
+    decode_attention's share of it; one layer's decode_attention on the
+    live cache against its plain version."""
+    import torch
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.launch.serve import config_for
+    from repro_torch.models.model import build_model
+
+    torch.cuda.empty_cache()
+    cfg = config_for("yi-9b", analog=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_model(cfg, device="cuda")
+    model.init(gen)
+    slots, cap = LONG["slots"], LONG["cache_len"]
+    cache = model.init_cache(slots, cap)
+    for layer in range(cfg.n_layers):           # one layer at a time: no float32 copy of it
+        cache.k[layer].normal_(generator=gen)
+        cache.v[layer].normal_(generator=gen)
+    # Every tick writes at `length`: leave room for the warm-up, timed and profiled ticks.
+    cache.length.copy_(torch.randint(LONG["min_len"], cap - LONG["ticks"] - 1, (slots,),
+                                     generator=gen, device="cuda", dtype=torch.int32))
+    start_lens = cache.length.clone()
+    tokens = torch.randint(0, cfg.vocab, (slots, 1), generator=gen, device="cuda")
+
+    def tick():
+        nonlocal tokens
+        logits, _ = model.decode_step(cache, tokens)
+        tokens = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        return logits
+
+    tick()                                       # warm-up
+    torch.cuda.synchronize()
+    da_ops.launches = 0
+    walls = []
+    for _ in range(LONG["ticks"]):
+        t0 = time.perf_counter()
+        logits = tick()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    if da_ops.launches != cfg.n_layers * LONG["ticks"]:
+        raise AssertionError(f"{da_ops.launches} decode_attention launches over "
+                             f"{LONG['ticks']} ticks, expected {cfg.n_layers} per tick")
+    finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+    if tuple(logits.shape[:2]) != (slots, 1) or not finite:
+        raise AssertionError(f"long-context logits {tuple(logits.shape)} not finite")
+    if not torch.equal(cache.length, start_lens + LONG["ticks"] + 1):
+        raise AssertionError("the cache lengths did not advance one per tick")
+    # The kernel on the live cache, as the model calls it: one layer's
+    # (B, S, Hkv, D) view of the stacked cache, lengths cache.length + 1.
+    layer = cfg.n_layers - 1
+    q = torch.randn((slots, cfg.n_heads, cfg.head_dim), generator=gen, device="cuda")
+    q = q.to(cache.k.dtype)
+    attn_args = (q, cache.k[layer], cache.v[layer], cache.length + 1)
+    got = da_ops.decode_attention(*attn_args, scale=cfg.head_dim ** -0.5).float()
+    want = da_ref.decode_attention_ref(*attn_args, scale=cfg.head_dim ** -0.5).float()
+    atol = BF16_ROW_ATOL * want.abs().amax(-1, keepdim=True)
+    err = check_close("decode_attention on the live cache", got, want, rtol=BF16_RTOL, atol=atol)
+    plan = da_ops.plan_for(q, cache.k[layer], cache.v[layer])
+    log(f"[profile] long-context decode tick: layer {layer}'s decode_attention on the live cache "
+        f"({q.dtype}, {plan.route} route, {plan.splits} splits of {plan.chunk} positions) within "
+        f"rtol {BF16_RTOL:g}, atol {BF16_ROW_ATOL:g} max|row| of the plain version: max abs err "
+        f"{err:.3g}, max |want| {float(want.abs().max()):.3g}")
+    if plan.route != "splitkv":
+        raise AssertionError(f"the long-context tick took the {plan.route} route")
+    read_mb = 2 * 2 * cfg.n_kv_heads * cfg.head_dim * int(cache.length.sum()) * cfg.n_layers / 1e6
+    wall = sum(walls) / len(walls)
+    log(f"[profile] long-context decode tick: yi-9b full width, analog, {slots} slots, cache "
+        f"{cap}, lengths {int(start_lens.min())}-{int(start_lens.max())} at the start: wall "
+        f"{' / '.join(f'{w:.2f}' for w in walls)} ms per tick (mean {wall:.2f}), "
+        f"{slots * 1e3 / wall:.1f} slot-tokens/s; {cfg.n_layers} decode_attention per tick "
+        f"reading {read_mb:.1f} MB of cache")
+    by_kernel = profile_device("long-context decode tick", tick, wall, top=8)
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        attn = sum(ms for name, ms in by_kernel.items() if "decode_attention" in name)
+        log(f"[profile] long-context decode tick: decode_attention {attn:.3f} ms of {busy:.2f} ms "
+            f"device busy ({attn / busy:.1%}), {attn / cfg.n_layers:.4f} ms per launch")
+    del model, cache
+    torch.cuda.empty_cache()
 
 
 # Card vs CPU engines: every logits row within rtol 1e-4 and 1e-5 * max|row|
@@ -778,6 +972,7 @@ def main() -> int:
     phase_cpu_vs_card(params, xte, yte, cfg)
     del params
     serve_launches = phase_serve(mvm_ops, da_ops)
+    phase_long_context(da_ops)
     phase_serve_cpu_vs_card()
 
     row = tri_time["row N=30"]

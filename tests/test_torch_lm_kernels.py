@@ -283,6 +283,111 @@ def test_decode_attention_lengths_past_the_cache_keep_all_positions():
     np.testing.assert_allclose(past.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+# The split-KV route's combine, written out plainly (ref.py), against the
+# reference: lengths of 1, inside split 0, exactly on a split boundary,
+# past S, and splits left empty by short lengths.
+@pytest.mark.parametrize(
+    "b,h,hkv,s,dk,dv,lens,splits,chunk",
+    [
+        (4, 32, 4, 256, 16, 16, [1, 9, 28, 256], 4, 64),     # serving: splits 1-3 empty
+        (3, 8, 2, 200, 32, 48, [64, 65, 128], 4, 64),        # on and just past a boundary
+        (2, 8, 1, 300, 64, 64, [300, 999], 3, 128),          # full, past S
+        (2, 16, 2, 100, 32, 32, [1, 40], 2, 64),             # G = 8, S not a multiple of 64
+        (1, 4, 4, 40, 16, 16, [33], 1, 64),                  # one split, MHA
+        (2, 8, 2, 512, 32, 32, [1, 512], 8, 64),             # eight splits, seven empty in row 0
+    ],
+)
+def test_decode_attention_split_combine_matches_reference(b, h, hkv, s, dk, dv, lens, splits,
+                                                          chunk):
+    q, k, v, _ = _attn_inputs(b * 7 + s, b, h, hkv, s, dk, dv)
+    lens = np.asarray(lens, np.int32)
+    got = da_ref.decode_attention_split_ref(*map(torch.as_tensor, (q, k, v, lens)), splits, chunk)
+    assert tuple(got.shape) == (b, h, dv)
+    jargs = tuple(map(jnp.asarray, (q, k, v, lens)))
+    want = j_decode_attention(*jargs, bs=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_decode_ref(*jargs)), rtol=1e-5, atol=1e-5)
+
+
+# The split-KV launch plan. `_h100_split_clusters` stands in for the card's
+# occupancy query (cudaOccupancyMaxActiveClusters): 2 blocks per SM (the
+# kernel's 100 KB of shared memory), less what clusters of `splits` blocks
+# waste on 132 SMs.
+
+
+def _h100_split_clusters(splits):
+    return 2 * 132 // splits
+
+
+@pytest.mark.parametrize("rows,s", [(128, 8192), (128, 4096), (16, 256), (16, 300), (1, 1),
+                                    (3, 63), (5, 65), (1024, 4096), (2, 100_000), (7, 129),
+                                    (128, 8191), (128, 8193), (16, 4096), (4, 64), (4, 65),
+                                    (64, 2048), (256, 512), (12, 1000), (1, 513), (33, 7777)])
+def test_split_plan_covers_every_position(rows, s):
+    tile = da_ops.SPLIT_TILE
+    plan = da_ops.split_plan(rows, s, tile, _h100_split_clusters)
+    assert plan.route == "splitkv" and 1 <= plan.splits <= 8   # the portable cluster size
+    assert plan.chunk % tile == 0 and plan.chunk >= tile
+    cover = np.zeros(s, dtype=int)
+    for r in range(plan.splits):
+        lo, hi = r * plan.chunk, min((r + 1) * plan.chunk, s)
+        assert lo < hi                                          # no split past the cache
+        cover[lo:hi] += 1
+    assert (cover == 1).all()                                   # every position in one split
+    assert plan.blocks == rows * plan.splits
+    assert plan.resident == _h100_split_clusters(plan.splits) * plan.splits
+    assert plan.waves == -(-plan.blocks // plan.resident)
+
+
+@pytest.mark.parametrize("s", [16384, 8192, 4096, 2048])
+def test_split_plan_fills_the_card_in_one_wave_at_long_context(s):
+    # 128 rows: 2 splits put 256 blocks on the 264 the card holds at once,
+    # one wave; more splits would need several (the card times them slower).
+    plan = da_ops.split_plan(32 * 4, s, da_ops.SPLIT_TILE, _h100_split_clusters)
+    assert plan.waves == 1 and plan.blocks > 132
+    assert (plan.splits, plan.blocks) == (2, 256)
+
+
+def test_split_plan_takes_the_shortest_critical_path_past_one_wave():
+    # 1024 rows cannot run in one wave: 1 split is 4 waves of 4096
+    # positions, 2 splits 8 of 2048, 4 splits 16 of 1024 (the same
+    # positions on the critical path); the fewest waves win the tie.
+    plan = da_ops.split_plan(1024, 4096, 64, lambda splits: 264 // splits)
+    assert plan.waves * plan.chunk == 16384 and plan.splits == 1
+
+
+@pytest.mark.parametrize("s", [1, 2, 17, 63, 64])
+def test_split_plan_takes_one_split_up_to_a_tile(s):
+    plan = da_ops.split_plan(16, s, da_ops.SPLIT_TILE, _h100_split_clusters)
+    assert plan.splits == 1 and plan.chunk == da_ops.SPLIT_TILE
+
+
+def test_split_plan_at_the_serving_shape_takes_the_most_splits_of_a_tile():
+    # 16 rows of S=256 cannot fill 2 blocks per SM; 4 splits of 64 is the
+    # most whose range holds a whole tile.
+    plan = da_ops.split_plan(16, 256, 64, _h100_split_clusters)
+    assert (plan.splits, plan.chunk, plan.blocks) == (4, 64, 64)
+
+
+def test_split_plan_skips_what_does_not_fit_and_raises_when_nothing_does():
+    plan = da_ops.split_plan(128, 8192, 64, lambda splits: 0 if splits > 2 else 9)
+    assert plan.splits == 2
+    with pytest.raises(ValueError, match="no split-KV plan"):
+        da_ops.split_plan(128, 8192, 64, lambda splits: 0)
+
+
+@pytest.mark.parametrize("dtype,g,dk,dv,aligned,split", [
+    (torch.bfloat16, 8, 128, 128, True, True), (torch.bfloat16, 8, 64, 64, True, True),
+    (torch.bfloat16, 1, 128, 128, True, True), (torch.bfloat16, 16, 128, 128, True, False),
+    (torch.bfloat16, 8, 576, 512, True, False), (torch.bfloat16, 8, 32, 48, True, False),
+    (torch.bfloat16, 8, 128, 128, False, False),
+    # float32 (the reduced configs) takes the rows route at every shape.
+    (torch.float32, 8, 128, 128, True, False), (torch.float32, 8, 64, 64, True, False),
+    (torch.float32, 2, 32, 32, True, False), (torch.float16, 8, 128, 128, True, False)])
+def test_split_route_is_chosen_by_shape(dtype, g, dk, dv, aligned, split):
+    assert da_ops.takes_split_route(dtype, g, dk, dv, aligned) is split
+
+
 @pytest.mark.parametrize("g,dk,dv,bs", [(8, 128, 128, 64), (8, 576, 512, 32), (16, 576, 512, 32),
                                         (1, 64, 64, 64)])
 def test_decode_block_fits_shared_memory(g, dk, dv, bs):
@@ -366,19 +471,99 @@ def test_imac_mvm_device_plan_runs_two_blocks_per_sm_on_card(cuda, m, k, n):
     assert plan.route == "splitk" and plan.blocks >= 2 * sms and plan.resident > 0
 
 
+def _card_attn_inputs(device, dtype, b, h, hkv, s, dk, dv, lens):
+    """Inputs on the card; `lens` "random" (1..S), "ragged" (1, S, a split
+    boundary, one past it and S + 7 first, then random) or "serving" (the
+    serving path's lengths, 9..28)."""
+    q, k, v, rand = _attn_inputs(s, b, h, hkv, s, dk, dv)
+    if lens == "ragged":
+        fill = [1, s, s // 8, s // 8 + 1, s + 7][:b]
+        rand[:len(fill)] = fill
+    elif lens == "serving":
+        rand = np.random.default_rng(b).integers(9, 29, (b,)).astype(np.int32)
+    q, k, v = (torch.as_tensor(a, device=device).to(dtype) for a in (q, k, v))
+    return q, k, v, torch.as_tensor(rand, device=device)
+
+
+_CARD_ATTN = [(4, 32, 4, 256, 128, 128, "random"),
+              (4, 32, 4, 256, 128, 128, "serving"),      # the serving path's shape and lengths
+              (32, 32, 4, 8192, 128, 128, "ragged"),
+              (32, 32, 4, 4096, 128, 128, "ragged"),     # yi-9b's 4K context, 32 slots
+              (3, 24, 4, 1000, 64, 64, "ragged"),        # head dim 64, G = 6
+              (2, 8, 1, 300, 576, 512, "random"),        # MLA-like: the rows route
+              (3, 8, 4, 200, 32, 48, "random"),
+              (3, 8, 4, 200, 30, 20, "random")]          # unaligned rows
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,hkv,s,dk,dv", [(4, 32, 4, 256, 128, 128), (2, 8, 1, 300, 576, 512),
-                                              (3, 8, 4, 200, 32, 48),
-                                              (3, 8, 4, 200, 30, 20)])   # unaligned rows
-def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype, b, h, hkv, s, dk, dv):
-    q, k, v, lens = (torch.as_tensor(a, device=cuda)
-                     for a in _attn_inputs(s, b, h, hkv, s, dk, dv))
-    q, k, v = (t.to(dtype) for t in (q, k, v))
+@pytest.mark.parametrize("b,h,hkv,s,dk,dv,lens", _CARD_ATTN)
+def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype, b, h, hkv, s, dk, dv, lens):
+    q, k, v, lens = _card_attn_inputs(cuda, dtype, b, h, hkv, s, dk, dv, lens)
     before = da_ops.launches
     got = da_ops.decode_attention(q, k, v, lens)
     want = da_ref.decode_attention_ref(q, k, v, lens)
     torch.cuda.synchronize()
     assert da_ops.launches == before + 1
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _assert_attention_close(got, want)
+
+
+def _assert_attention_close(got, want):
+    """float32 within rtol = atol = 1e-5; bfloat16 within one bfloat16 ulp
+    (<= 2^-7 of the value, so 1e-2 |want|) plus 1e-3 of the row's largest
+    |want|: both round the same float32 sums to bfloat16."""
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    got, want = got.float(), want.float()
+    tol = 1e-2 * want.abs() + 1e-3 * want.abs().amax(-1, keepdim=True)
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), f"max abs error {float(err.max()):.3g}"
+
+
+@pytest.mark.cuda
+def test_decode_attention_keeps_p_low_half_on_card(cuda):
+    # Even positions score m, odd ones m - 6.9e-4 (p = 0.99931 rounds to 1
+    # in bfloat16) and v = +/-1 by parity: out = +/-(1 - p) / (1 + p)
+    # = +/-3.45e-4 comes only from the low half of the kernel's P.
+    b, s, hkv, g, d = 4, 256, 4, 8, 128
+    parity = torch.arange(s, device=cuda) % 2
+    sign = torch.as_tensor(np.random.default_rng(0).choice([-1.0, 1.0], d), device=cuda)
+    q = torch.zeros((b, hkv * g, d), device=cuda)
+    q[..., 0] = 2.0
+    k = torch.zeros((b, s, hkv, d), device=cuda)
+    k[..., 0] = (1.0 - 2.0 ** -8 * parity)[None, :, None]
+    v = (1.0 - 2.0 * parity)[None, :, None, None] * sign * torch.ones((b, s, hkv, d), device=cuda)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    lens = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    assert da_ops.plan_for(q, k, v).route == "splitkv"
+    want = da_ref.decode_attention_ref(q, k, v, lens)
+    assert 3e-4 < float(want.float().abs().min()) <= float(want.float().abs().max()) < 4e-4
+    _assert_attention_close(da_ops.decode_attention(q, k, v, lens), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,dk,dv,lens", [(4, 32, 4, 256, 128, 128, "serving"),
+                                                   (32, 32, 4, 4096, 128, 128, "ragged"),
+                                                   (2, 8, 1, 300, 576, 512, "random")])
+def test_decode_attention_relaunch_is_bit_identical_on_card(cuda, dtype, b, h, hkv, s, dk, dv,
+                                                            lens):
+    q, k, v, lens = _card_attn_inputs(cuda, dtype, b, h, hkv, s, dk, dv, lens)
+    first, again = da_ops.decode_attention(q, k, v, lens), da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [8192, 4096])
+def test_decode_attention_device_plan_fills_the_card_in_one_wave_on_card(cuda, dtype, s):
+    q = torch.zeros((32, 32, 128), device=cuda, dtype=dtype)
+    k = torch.zeros((32, s, 4, 128), device=cuda, dtype=dtype)
+    plan = da_ops.plan_for(q, k, k)
+    if dtype == torch.float32:                # no float32 caller at this shape: the rows route
+        assert plan == da_ops.Plan("rows", 0, 0, 32 * 4)
+        return
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.route == "splitkv" and plan.waves == 1 and plan.blocks > sms
