@@ -7,7 +7,10 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
 It builds the four CUDA kernels from the sources in this checkout (nvcc,
 into build/repro_torch/) and holds each against its plain torch version
-at the shapes of its path. Then it drives both main paths:
+at the shapes of its path (`imac_mvm` on all three of its routes: the
+exact integer tensor-core route for M >= 9 with integer quantisers, also
+bit for bit against its exact plain version; otherwise split-K for
+M <= 16 and the 64x64 tile above). Then it drives both main paths:
 
 - testIMAC on the paper's 400x120x84x10 sigmoid MLP on MRAM 32x32
   arrays, 500 test samples, once per solver backend (the `tridiag` and
@@ -15,8 +18,10 @@ at the shapes of its path. Then it drives both main paths:
 - the LM substrate's analog serving path, yi-9b at full width with
   ``analog_mvm`` (the `imac_mvm` and `decode_attention` kernels): 6
   requests over 4 slots; then decode ticks at long context (32 slots of
-  a 4096-position cache, lengths 2048-4096), profiled; then the reduced
-  model on the card against the CPU with the same weights.
+  a 4096-position cache, lengths 2048-4096: every FFN projection on the
+  integer route at M = 32), profiled; then the reduced model on the card
+  against the CPU with the same weights, once with the launcher's
+  prompts and once with a 24-token prompt.
 
 Any failure exits non-zero. The last line of output is
 
@@ -29,6 +34,7 @@ Imports torch, numpy and repro_torch only.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -42,6 +48,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # Card peaks used for the bounds (H100 SXM data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 
 # The serving path: yi-9b (K, N) of the FFN projections, the launcher's defaults.
 YI_FFN = ((4096, 11008), (11008, 4096))
@@ -104,6 +111,14 @@ def device_ms(fn, reps: int) -> "float | None":
     return sum(ms for _, ms in kernels.values()) / reps if kernels else None
 
 
+def kernel_name(name: str) -> str:
+    """A profiler kernel name, shortened to the port's kernel function."""
+    import re
+
+    found = re.search(r"(imac_mvm|decode_attention|tridiag|gs_fused)\w*", name)
+    return found.group(0) if found else name[:40]
+
+
 def shown_ms(ms: "float | None") -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -124,10 +139,13 @@ def check_close(name, got, want, *, rtol, atol) -> float:
     return float(err.max())
 
 
-def bound_of(bytes_moved: float, flops: float) -> "tuple[float, str]":
-    """The least time (ms) the card could take, and which of the two bounds it."""
+def bound_of(bytes_moved: float, flops: float,
+             ops_per_s: float = FP32_FLOPS_PER_S) -> "tuple[float, str]":
+    """The least time (ms) the card could take, and which of the two bounds
+    it: the bytes at the memory rate, the operations at `ops_per_s` (the
+    fp32 CUDA-core rate unless the work runs at another's)."""
     t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    t_ops = 1e3 * flops / ops_per_s
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -458,12 +476,16 @@ TILE16_MS = {(4, 4096, 11008): 0.3402, (4, 11008, 4096): 0.6727,
 
 
 def phase_imac_mvm(gen):
-    """The imac_mvm kernel against its plain version; bitwise relaunches;
-    times at M in {4, 12} on both yi-9b FFN shapes and at M=2048."""
+    """The imac_mvm kernel against its plain version on all three routes
+    (the integer route also bit for bit against its exact plain version),
+    NaN rows and columns, bitwise relaunches; times at M in {4, 12} and
+    32 (bf16 x) and 2048 (f32 x) on both yi-9b FFN shapes."""
     import torch
     from repro_torch.kernels.imac_mvm import ops, ref
 
-    def operands(m, k, n, x_dtype=torch.float32):
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def operands(m, k, n, x_dtype=f32):
         # A little past [0, 1] and [-1, 1], so that clipping is exercised.
         x = torch.empty((m, k), device="cuda").uniform_(-0.1, 1.1, generator=gen)
         w = torch.empty((k, n), device="cuda").uniform_(-1.1, 1.1, generator=gen)
@@ -471,23 +493,36 @@ def phase_imac_mvm(gen):
 
     # The serving shapes (decode's M=4, the prefills' M=8-12: buckets 4, 8
     # and 12, full and partial), then ragged ones: M at the split-K route's
-    # edge and past it, K not a multiple of the splits, N not a multiple of 4.
-    shapes = ([(m, k, n) for m in (4, 8, 10, 12) for k, n in YI_FFN]
-              + [(1003, 300, 129), (16, 4097, 4095), (1, 11008, 129), (17, 4097, 129)])
-    quants = [(bits, levels) for bits in (0, 4, 8) for levels in (1, 16, 256)]
+    # edge and past it, K not a multiple of the splits or of 16, N not a
+    # multiple of 4; the long-context tick's M=32 in both x types; M=2048.
+    # Each with the x types held over the whole quantiser grid.
+    shapes = ([(m, k, n, (f32,)) for m in (4, 8, 10, 12) for k, n in YI_FFN]
+              + [(1003, 300, 129, (f32,)), (16, 4097, 4095, (f32,)), (1, 11008, 129, (f32,)),
+                 (17, 4097, 129, (f32,)), (33, 300, 129, (f32,))]
+              + [(32, k, n, (f32, bf16)) for k, n in YI_FFN] + [(2048, 11008, 4096, (f32,))])
+    quants = [(bits, levels) for bits in (0, 1, 4, 8) for levels in (1, 2, 16, 128, 256)]
     max_err = 0.0
-    for m, k, n in shapes:
-        x, w = operands(m, k, n)
-        worst = 0.0
-        for bits, levels in quants:
-            got = ops.imac_mvm(x, w, dac_bits=bits, levels=levels)
-            want = ref.imac_mvm_ref(x, w, dac_bits=bits, levels=levels)
-            torch.cuda.synchronize()
-            atol = 1e-6 * k * float(x.abs().max()) * float(w.abs().max())
-            worst = max(worst, check_close(f"imac_mvm {m}x{k}x{n} dac={bits} levels={levels}",
-                                           got, want, rtol=1e-5, atol=atol))
+    for m, k, n, dtypes in shapes:
+        worst, routes = 0.0, {}
+        for x_dtype in dtypes:
+            x, w = operands(m, k, n, x_dtype)
+            atol = 1e-6 * k * float(x.float().abs().max()) * float(w.abs().max())
+            for bits, levels in quants:
+                route = ops.plan_for(x, w, dac_bits=bits, levels=levels).route
+                got = ops.imac_mvm(x, w, dac_bits=bits, levels=levels)
+                want = ref.imac_mvm_ref(x, w, dac_bits=bits, levels=levels)
+                torch.cuda.synchronize()
+                label = f"imac_mvm {m}x{k}x{n} {str(x_dtype)[6:]} dac={bits} levels={levels}"
+                worst = max(worst, check_close(label, got, want, rtol=1e-5, atol=atol))
+                if route == "int8":
+                    exact = ref.imac_mvm_levels_ref(x, w, dac_bits=bits, levels=levels)
+                    if not torch.equal(got, exact):
+                        raise AssertionError(f"{label}: the int8 route differs from "
+                                             f"imac_mvm_levels_ref in {int((got != exact).sum())} "
+                                             "elements")
+                routes.setdefault(route, set()).add((bits, levels))
         if m <= 16:   # the serving path hands the kernel bfloat16 activations
-            xb = x.to(torch.bfloat16)
+            xb = x.to(bf16)
             got = ops.imac_mvm(xb, w)
             want = ref.imac_mvm_ref(xb, w)
             torch.cuda.synchronize()
@@ -495,25 +530,52 @@ def phase_imac_mvm(gen):
             worst = max(worst, check_close(f"imac_mvm {m}x{k}x{n} bf16 x", got, want,
                                            rtol=1e-5, atol=atol))
         max_err = max(max_err, worst)
-        log(f"[imac_mvm] M={m} K={k} N={n} ({ops.plan_for(x, w).route}): dac_bits "
-            f"{{0,4,8}} x levels {{1,16,256}}{' and bf16 x' if m <= 16 else ''}: max abs err "
-            f"{worst:.3g} (rtol 1e-5, atol 1e-6*K*max|x|*max|w|)")
+        taken = "; ".join(f"{route}: {' '.join(f'{b}/{lv}' for b, lv in sorted(pairs))}"
+                          for route, pairs in sorted(routes.items()))
+        extra = " and bf16 x at 8/16" if m <= 16 else ""
+        log(f"[imac_mvm] M={m} K={k} N={n} x {'+'.join(str(d)[6:] for d in dtypes)}: dac_bits "
+            f"{{0,1,4,8}} x levels {{1,2,16,128,256}}{extra}: max abs err {worst:.3g} (rtol "
+            f"1e-5, atol 1e-6*K*max|x|*max|w|); routes (dac_bits/levels) {taken}"
+            + ("; int8 bit-identical to imac_mvm_levels_ref" if "int8" in routes else ""))
 
-    # Two launches on the same inputs give the same bits (no atomics).
-    for m, k, n in [*TILE16_MS, (8, 4096, 11008), (10, 11008, 4096), (16, 4097, 4095),
-                    (2048, 300, 129)]:
-        x, w = operands(m, k, n, torch.bfloat16 if m <= 16 else torch.float32)
+    # NaN in a row of x or a column of w gives NaN there, as the reference
+    # (NaN * 0 is NaN); +-inf clips.
+    for m, k, n, x_dtype in ((40, 300, 129, f32), (32, 4096, 11008, bf16)):
+        x, w = operands(m, k, n, x_dtype)
+        x[3, 7], w[11, 5] = float("nan"), float("nan")
+        x[5, 0], w[0, 9] = float("inf"), -float("inf")
+        got, want = ops.imac_mvm(x, w), ref.imac_mvm_ref(x, w)
+        exact = ref.imac_mvm_levels_ref(x, w)
+        torch.cuda.synchronize()
+        nan = got.isnan()
+        if not (torch.equal(nan, want.isnan()) and torch.equal(nan, exact.isnan())
+                and int(nan.sum()) == m + n - 1
+                and torch.equal(got.nan_to_num(), exact.nan_to_num())):
+            raise AssertionError(f"imac_mvm {m}x{k}x{n}: NaN rows and columns not reproduced")
+        # atol 1e-6*K*max|x|*max|w| with the clipped maxima (x holds an inf).
+        check_close(f"imac_mvm {m}x{k}x{n} with NaN (finite part)", got[~nan], want[~nan],
+                    rtol=1e-5, atol=1e-6 * k)
+    log(f"[imac_mvm] NaN rows and columns reproduced at 40x300x129 f32 and 32x4096x11008 bf16 "
+        f"({ops.plan_for(x, w).route} route), +-inf clipped")
+
+    # Two launches on the same inputs give the same bits (no atomics; the
+    # integer route's sums are exact).
+    relaunch = [*TILE16_MS, (8, 4096, 11008), (10, 11008, 4096), (16, 4097, 4095),
+                (2048, 300, 129), (32, 4096, 11008), (2048, 4096, 11008)]
+    for m, k, n in relaunch:
+        x, w = operands(m, k, n, bf16 if m <= 32 else f32)
         first, again = ops.imac_mvm_2d(x, w), ops.imac_mvm_2d(x, w)
         torch.cuda.synchronize()
         if not torch.equal(first, again):
             raise AssertionError(f"imac_mvm {m}x{k}x{n}: two launches differ by "
                                  f"{float((first - again).abs().max()):.3g}")
-    log("[imac_mvm] two launches bit-identical at the four serving shapes, "
-        "8x4096x11008, 10x11008x4096, 16x4097x4095 and 2048x300x129")
+    log("[imac_mvm] two launches bit-identical at " + ", ".join(f"{m}x{k}x{n}"
+                                                               for m, k, n in relaunch))
 
     timing = {}
-    cases = [(m, k, n, torch.bfloat16) for m, k, n in TILE16_MS]
-    cases.append((2048, 4096, 11008, torch.float32))
+    tile64 = ops.Plan("tile64", 0, 0, 0, 0, 0, 0)
+    cases = ([(m, k, n, bf16) for m, k, n in TILE16_MS] + [(32, k, n, bf16) for k, n in YI_FFN]
+             + [(2048, k, n, f32) for k, n in YI_FFN])
     for m, k, n, x_dtype in cases:
         x, w = operands(m, k, n, x_dtype)
         plan = ops.plan_for(x, w)
@@ -524,17 +586,35 @@ def phase_imac_mvm(gen):
         library_ms = time_ms(lambda: torch.matmul(xq, wq), reps=50)
         bytes_moved = x.element_size() * m * k + 4 * k * n + 4 * m * n
         flops = 2 * m * k * n
-        bound_ms, bound_by = bound_of(bytes_moved, flops)
+        rate = INT8_OPS_PER_S if plan.route == "int8" else FP32_FLOPS_PER_S
+        bound_ms, bound_by = bound_of(bytes_moved, flops, rate)
+        fp32_bound_ms, fp32_by = bound_of(bytes_moved, flops)
         timing[(m, k, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
+                                 bound_ms=bound_ms, bound_by=bound_by, route=plan.route)
         before = TILE16_MS.get((m, k, n))
         was = f" (the 16x32x64 tile it replaced: {before:.4f} ms, now {before / ms:.2f}x faster)" \
             if before else ""
-        log(f"[imac_mvm] time M={m} K={k} N={n} x {str(x_dtype)[6:]}: kernel {ms:.4f} ms"
-            f"{was}, {bytes_moved / ms / 1e9:.3f} TB/s; plain {plain_ms:.4f} ms, torch.matmul "
-            f"of the quantised f32 operands (TF32 off) {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP); plan {tuple(plan)}")
+        extra = ""
+        if m > 16:
+            tile_ms = time_ms(lambda: ops.launch(x, w, tile64), reps=10 if m > 32 else 50)
+            a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            b8 = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                               dtype=torch.int8).t()
+            int_mm_ms = time_ms(lambda: torch._int_mm(a8, b8), reps=50)
+            timing[(m, k, n)].update(tile64_ms=tile_ms, int_mm_ms=int_mm_ms)
+            parts = traced_kernels(lambda: ops.imac_mvm_2d(x, w), reps=10)
+            split = ", ".join(f"{kernel_name(name)} {dev / 10:.4f}" for name, (_, dev) in
+                              sorted(parts.items(), key=lambda kv: -kv[1][1]))
+            extra = (f"; 64x64 tile {tile_ms:.4f} ms ({tile_ms / ms:.2f}x the kernel); "
+                     f"torch._int_mm on random s8 operands (int8 GEMM rate, not the same "
+                     f"function) {int_mm_ms:.4f} ms; fp32 bound {fp32_bound_ms:.4f} ms "
+                     f"({fp32_by}); device ms per call by kernel: {split or 'not measured'}")
+        log(f"[imac_mvm] time M={m} K={k} N={n} x {str(x_dtype)[6:]} ({plan.route} route): "
+            f"kernel {ms:.4f} ms{was}, {bytes_moved / ms / 1e9:.3f} TB/s; plain {plain_ms:.4f} "
+            f"ms, torch.matmul of the quantised f32 operands (TF32 off) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"G{'OP at int8' if plan.route == 'int8' else 'FLOP at fp32'}); plan {tuple(plan)}"
+            + extra)
     return max_err, timing
 
 
@@ -720,12 +800,30 @@ def phase_serve(mvm_ops, da_ops):
 LONG = dict(slots=32, cache_len=4096, min_len=2048, ticks=3)
 
 
-def phase_long_context(da_ops):
+@contextlib.contextmanager
+def recorded_routes(mvm_ops):
+    """Record the route of every imac_mvm launch made inside the block:
+    yields {(x shape, w shape): {route, ...}}."""
+    taken, launch = {}, mvm_ops.launch
+
+    def recording(x, w, plan, **kw):
+        taken.setdefault((tuple(x.shape), tuple(w.shape)), set()).add(plan.route)
+        return launch(x, w, plan, **kw)
+
+    mvm_ops.launch = recording
+    try:
+        yield taken
+    finally:
+        mvm_ops.launch = launch
+
+
+def phase_long_context(mvm_ops, da_ops):
     """yi-9b at full width, analog FFN, one decode tick at a time over 32
     slots of a 4096-position cache filled from the generator (lengths
-    2048-4096, no prefill): tick wall, device busy time and
-    decode_attention's share of it; one layer's decode_attention on the
-    live cache against its plain version."""
+    2048-4096, no prefill): tick wall, device busy time and the shares of
+    imac_mvm (whose FFN projections take the int8 route at M = 32) and
+    decode_attention; one layer's decode_attention on the live cache
+    against its plain version."""
     import torch
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.launch.serve import config_for
@@ -753,9 +851,15 @@ def phase_long_context(da_ops):
         tokens = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
         return logits
 
-    tick()                                       # warm-up
+    with recorded_routes(mvm_ops) as taken:     # the warm-up tick
+        tick()
     torch.cuda.synchronize()
+    ffn = {((slots, cfg.d_model), (cfg.d_model, cfg.d_ff)), ((slots, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
+    if set(taken) != ffn or any(routes != {"int8"} for routes in taken.values()):
+        raise AssertionError(f"long-context imac_mvm launches took {taken}, expected the int8 "
+                             f"route at {sorted(ffn)}")
     da_ops.launches = 0
+    mvm_ops.launches = 0
     walls = []
     for _ in range(LONG["ticks"]):
         t0 = time.perf_counter()
@@ -765,6 +869,9 @@ def phase_long_context(da_ops):
     if da_ops.launches != cfg.n_layers * LONG["ticks"]:
         raise AssertionError(f"{da_ops.launches} decode_attention launches over "
                              f"{LONG['ticks']} ticks, expected {cfg.n_layers} per tick")
+    if mvm_ops.launches != 3 * cfg.n_layers * LONG["ticks"]:
+        raise AssertionError(f"{mvm_ops.launches} imac_mvm launches over {LONG['ticks']} ticks, "
+                             f"expected {3 * cfg.n_layers} per tick")
     finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
     if tuple(logits.shape[:2]) != (slots, 1) or not finite:
         raise AssertionError(f"long-context logits {tuple(logits.shape)} not finite")
@@ -793,13 +900,20 @@ def phase_long_context(da_ops):
         f"{cap}, lengths {int(start_lens.min())}-{int(start_lens.max())} at the start: wall "
         f"{' / '.join(f'{w:.2f}' for w in walls)} ms per tick (mean {wall:.2f}), "
         f"{slots * 1e3 / wall:.1f} slot-tokens/s; {cfg.n_layers} decode_attention per tick "
-        f"reading {read_mb:.1f} MB of cache")
+        f"reading {read_mb:.1f} MB of cache; {3 * cfg.n_layers} imac_mvm per tick, all on the "
+        f"int8 route at M={slots} (K, N = {cfg.d_model}, {cfg.d_ff} and {cfg.d_ff}, {cfg.d_model})")
     by_kernel = profile_device("long-context decode tick", tick, wall, top=8)
     if by_kernel:
         busy = sum(by_kernel.values())
         attn = sum(ms for name, ms in by_kernel.items() if "decode_attention" in name)
         log(f"[profile] long-context decode tick: decode_attention {attn:.3f} ms of {busy:.2f} ms "
             f"device busy ({attn / busy:.1%}), {attn / cfg.n_layers:.4f} ms per launch")
+        mvm = {kernel_name(name): ms for name, ms in by_kernel.items() if "imac_mvm" in name}
+        total = sum(mvm.values())
+        log(f"[profile] long-context decode tick: imac_mvm {total:.3f} ms of {busy:.2f} ms device "
+            f"busy ({total / busy:.1%}), {total / (3 * cfg.n_layers):.4f} ms per call: "
+            + ", ".join(f"{name} {ms:.3f} ms" for name, ms in sorted(mvm.items(),
+                                                                     key=lambda kv: -kv[1])))
     del model, cache
     torch.cuda.empty_cache()
 
@@ -809,6 +923,8 @@ def phase_long_context(da_ops):
 # the CPU's (one 8-bit level is 3.9e-3), and at least 90% of the tokens
 # compared before any parting.
 ENGINE_RTOL, ENGINE_ATOL, DAC_TOL, MIN_COMPARED = 1e-4, 1e-5, 1e-5, 0.9
+# A prompt past the split-K route's 16 rows (its prefill takes the int8 route).
+LONG_PROMPT = 24
 
 
 class RecordingModel:
@@ -919,8 +1035,11 @@ def engines_agree(label, run_a, run_b, vocab) -> "tuple[int, int, float]":
     return compared, total, diff
 
 
-def phase_serve_cpu_vs_card():
-    """yi-9b reduced (2 layers, float32, analog) on the card and on the CPU."""
+def phase_serve_cpu_vs_card(mvm_ops):
+    """yi-9b reduced (2 layers, float32, analog) on the card and on the CPU:
+    the launcher's prompts (8-12 tokens: prefills on split-K at M = 8 and on
+    the int8 route at 9-12), then the same with one prompt of 24 tokens
+    (past the split-K route's 16 rows)."""
     import dataclasses
 
     import numpy as np
@@ -935,14 +1054,25 @@ def phase_serve_cpu_vs_card():
     cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
     rng = np.random.default_rng(0)   # the launcher's prompts
     prompts = [rng.integers(0, cfg.vocab, size=(8 + i % 5,)) for i in range(SERVE["requests"])]
-    dac_inputs = []
-    *cpu_run, _ = run_engine(cpu, prompts, dac_inputs, replay=False)
-    *card_run, dac_err = run_engine(card, prompts, dac_inputs, replay=True)
-    compared, total, diff = engines_agree("card vs CPU", card_run, cpu_run, cfg.vocab)
-    log(f"[serve-cpu] yi-9b reduced (2 layers, float32, analog): card and CPU engines agree on "
-        f"{compared} of {total} tokens compared, max logits diff {diff:.3g} (rtol "
-        f"{ENGINE_RTOL:g} + atol {ENGINE_ATOL:g}*max|row|); the card's {len(dac_inputs)} DAC "
-        f"inputs within {dac_err:.3g} of the CPU's, replayed from the CPU run")
+    long_prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=(LONG_PROMPT,))
+    runs = {"launcher prompts": prompts,
+            f"one prompt of {LONG_PROMPT} tokens": [*prompts[:2], long_prompt, *prompts[3:]]}
+    for label, run_prompts in runs.items():
+        dac_inputs = []
+        *cpu_run, _ = run_engine(cpu, run_prompts, dac_inputs, replay=False)
+        with recorded_routes(mvm_ops) as taken:
+            *card_run, dac_err = run_engine(card, run_prompts, dac_inputs, replay=True)
+        compared, total, diff = engines_agree(f"card vs CPU, {label}", card_run, cpu_run,
+                                              cfg.vocab)
+        routes = sorted({route for r in taken.values() for route in r})
+        int8_m = sorted({x[0] for (x, _), r in taken.items() if "int8" in r})
+        if (LONG_PROMPT in int8_m) != (label != "launcher prompts"):
+            raise AssertionError(f"{label}: the int8 route ran at M = {int8_m}")
+        log(f"[serve-cpu] yi-9b reduced (2 layers, float32, analog), {label}: card and CPU "
+            f"engines agree on {compared} of {total} tokens compared, max logits diff {diff:.3g} "
+            f"(rtol {ENGINE_RTOL:g} + atol {ENGINE_ATOL:g}*max|row|); the card's "
+            f"{len(dac_inputs)} DAC inputs within {dac_err:.3g} of the CPU's, replayed from the "
+            f"CPU run; card routes {routes}, int8 at M = {int8_m}")
 
 
 def main() -> int:
@@ -972,10 +1102,11 @@ def main() -> int:
     phase_cpu_vs_card(params, xte, yte, cfg)
     del params
     serve_launches = phase_serve(mvm_ops, da_ops)
-    phase_long_context(da_ops)
-    phase_serve_cpu_vs_card()
+    phase_long_context(mvm_ops, da_ops)
+    phase_serve_cpu_vs_card(mvm_ops)
 
     row = tri_time["row N=30"]
+    m32 = mvm_time[(32, 4096, 11008)]
     kernels = [
         dict(name="tridiag", route="cuda",
              source="src/repro_torch/kernels/tridiag/csrc/tridiag.cu",
@@ -994,7 +1125,11 @@ def main() -> int:
              source="src/repro_torch/kernels/imac_mvm/csrc/imac_mvm.cu",
              replaces="src/repro/kernels/imac_mvm/kernel.py:38",
              launches=serve_launches["imac_mvm"], max_abs_err=mvm_err,
-             **mvm_time[(4, 4096, 11008)]),
+             **{key: mvm_time[(4, 4096, 11008)][key]
+                for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             plan_route=mvm_time[(4, 4096, 11008)]["route"],
+             m32_plan_route=m32["route"], m32_ms=m32["ms"], m32_bound_ms=m32["bound_ms"],
+             m32_bound_by=m32["bound_by"], m32_library_ms=m32["library_ms"]),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:30",

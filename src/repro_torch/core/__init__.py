@@ -4,10 +4,11 @@ Public API:
   devices.DeviceTech / MRAM / RRAM / CBRAM / PCM
   interconnect.Interconnect
   mapping.map_wb / map_network          (Module 2: mapWB)
-  partition.auto_partition / plan_partition / tile_matrix
+  partition.auto_partition / plan_partition / plan_topology / tile_matrix
   solver.solve_crossbar / solve_dense_mna (the "SPICE engine")
   solver.Stamps / SolveOptions           (stamps + backend choice)
-  backends.register_backend / available_backends / get_backend
+  backends.register_backend / available_backends / get_backend /
+    default_backend_name
   neurons.NeuronModel
   imac.IMACConfig / IMACNetwork / imac_linear (Modules 3-4)
   evaluate.test_imac / evaluate_batch / sweep (Module 1: testIMAC)
@@ -15,6 +16,7 @@ Public API:
 from repro_torch.core.backends import (
     SolverBackend,
     available_backends,
+    default_backend_name,
     get_backend,
     register_backend,
 )
@@ -44,7 +46,12 @@ from repro_torch.core.imac import (
 from repro_torch.core.interconnect import DEFAULT_INTERCONNECT, Interconnect
 from repro_torch.core.mapping import MappedLayer, map_network, map_wb
 from repro_torch.core.neurons import NeuronModel, get_neuron
-from repro_torch.core.partition import PartitionPlan, auto_partition, plan_partition
+from repro_torch.core.partition import (
+    PartitionPlan,
+    auto_partition,
+    plan_partition,
+    plan_topology,
+)
 from repro_torch.core.solver import (
     CircuitParams,
     SolveOptions,
@@ -78,6 +85,7 @@ __all__ = [
     "available_backends",
     "crossbar_power",
     "custom_tech",
+    "default_backend_name",
     "evaluate_batch",
     "get_backend",
     "get_neuron",
@@ -87,6 +95,7 @@ __all__ = [
     "map_network",
     "map_wb",
     "plan_partition",
+    "plan_topology",
     "register_backend",
     "solve_crossbar",
     "solve_dense_mna",

@@ -14,11 +14,17 @@ On CPU tensors each kernel's wrapper runs its plain torch version; on a
 CUDA tensor it launches the kernel or raises. No entry runs the plain
 Thomas loop on a CUDA tensor.
 
+Backends are selected by name through `solver.SolveOptions`, or by the
+``REPRO_SOLVER_BACKEND`` environment variable for a process-wide
+default; a custom inner solve registers with `register_backend` or is
+passed directly as a callable.
+
 Kernel modules are imported lazily, inside the factories.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import torch
@@ -30,6 +36,7 @@ TridiagFn = Callable[
 ]
 
 DEFAULT_BACKEND = "tridiag"
+ENV_BACKEND = "REPRO_SOLVER_BACKEND"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +71,27 @@ def available_backends() -> "tuple[str, ...]":
     return tuple(sorted(_REGISTRY))
 
 
-def get_backend(spec: "str | SolverBackend | None") -> SolverBackend:
-    """Resolve a backend name or `SolverBackend`; None = ``"tridiag"``."""
+def default_backend_name() -> str:
+    """Process-wide default backend: $REPRO_SOLVER_BACKEND or ``"tridiag"``."""
+    return os.environ.get(ENV_BACKEND, DEFAULT_BACKEND)
+
+
+def get_backend(spec: "str | SolverBackend | TridiagFn | None") -> SolverBackend:
+    """Resolve a backend spec: name, SolverBackend, TridiagFn, or None.
+
+    None resolves to `default_backend_name()`. A bare callable is wrapped
+    as an anonymous inner-tridiag backend.
+    """
     if spec is None:
-        spec = DEFAULT_BACKEND
+        spec = default_backend_name()
     if isinstance(spec, SolverBackend):
         return spec
+    if callable(spec):
+        fn = spec
+        return SolverBackend(
+            name=getattr(fn, "__name__", "custom"),
+            make_tridiag=lambda options: fn,
+        )
     try:
         return _REGISTRY[spec]
     except KeyError:

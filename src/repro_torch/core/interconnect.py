@@ -51,3 +51,13 @@ class Interconnect:
 
 # Paper Table II defaults (14nm FinFET node).
 DEFAULT_INTERCONNECT = Interconnect()
+
+
+def scaled_interconnect(scale: float, base: Interconnect = DEFAULT_INTERCONNECT) -> Interconnect:
+    """Scale wire cross-section (e.g. older/newer node); R ∝ 1/scale²."""
+    return dataclasses.replace(
+        base,
+        thickness=base.thickness * scale,
+        width=base.width * scale,
+        pitch=base.pitch * scale,
+    )

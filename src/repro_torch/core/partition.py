@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -120,3 +121,32 @@ def combine_outputs(per_tile: torch.Tensor, plan: PartitionPlan) -> torch.Tensor
     out = summed.reshape(*summed.shape[:-2], plan.vp * plan.cols)
     return out[..., : plan.total_cols]
 
+
+
+def plan_topology(
+    topology: Sequence[int],
+    array_rows: int,
+    array_cols: int,
+    hp: "Sequence[int] | None" = None,
+    vp: "Sequence[int] | None" = None,
+) -> "list[PartitionPlan]":
+    """Plans for every layer of T_N = [n_0, n_1, ..., n_L].
+
+    If hp/vp are None they are derived from the array size (Table III).
+    """
+    n_layers = len(topology) - 1
+    if hp is None or vp is None:
+        auto = [
+            auto_partition(topology[i], topology[i + 1], array_rows, array_cols)
+            for i in range(n_layers)
+        ]
+        hp = [a[0] for a in auto]
+        vp = [a[1] for a in auto]
+    if len(hp) != n_layers or len(vp) != n_layers:
+        raise ValueError(
+            f"H_P/V_P length mismatch: {len(hp)}/{len(vp)} vs {n_layers} layers"
+        )
+    return [
+        plan_partition(topology[i], topology[i + 1], hp[i], vp[i])
+        for i in range(n_layers)
+    ]

@@ -123,10 +123,12 @@ class SolveOptions:
 
     Attributes:
       backend: a registry name (``"tridiag"``, ``"fused"``), a
-        `SolverBackend`, or None for ``"tridiag"``.
+        `SolverBackend`, a bare TridiagFn, or None for
+        `backends.default_backend_name()` ($REPRO_SOLVER_BACKEND or
+        ``"tridiag"``).
     """
 
-    backend: Union[str, SolverBackend, None] = None
+    backend: Union[str, SolverBackend, TridiagFn, None] = None
 
     def resolved(self) -> SolverBackend:
         return get_backend(self.backend)

@@ -20,10 +20,13 @@
 // TF32: TF32 keeps ~3 decimal digits and would not hold the f32
 // reference). sign(0) = 0.
 //
-// Design, two routes; the launch plan, computed by `launch_plan` in ops.py
-// and passed in, picks one by its M bucket (0: the 64x64 tile):
+// Design, three routes; the launch plan, computed by `launch_plan` in
+// ops.py and passed in, picks one: the integer tensor-core route for
+// M >= 9 with integer quantisers (imac_mvm_int8_launch; it beats split-K
+// from M = 12 on the H100), else the split-K kernel for M <= 16 and the
+// 64x64 tile above (M bucket 0 of imac_mvm_launch).
 //
-// M <= 16 (decode and prefill): a split-K
+// M <= 16 without the integer route (decode's M <= 8; any quantisers): a split-K
 // weight-streaming kernel. At M = 4 the product is bound by the bytes of
 // w, 4 * K * N (180 MB for a yi-9b projection, 0.054 ms at 3.35 TB/s),
 // so the design streams w once at the highest rate it can:
@@ -58,7 +61,45 @@
 // at 3.35 TB/s; at M = 12-16 issue rate and the 2 blocks per SM that their
 // accumulators leave room for bind before the bytes do.
 //
-// M > 16: a shared-memory tiled GEMM, 64x64x16 tiles
+// M >= 9, integer quantisers (1 <= dac_bits <= 8, 2 <= levels <= 128):
+// an exact integer product on the tensor cores. A DAC level
+// ix = rint(clip(x) * n) is an integer in 0..255 and a weight level
+// r = sign(w) * rint(|clip(w)| / step) one in -127..127, and
+// DAC(x) @ Q(w) = (ix @ r) * step / n. So:
+//   * Two pack kernels compute the levels with exactly the expressions of
+//     dac() and wquant() below (the same .5 boundaries): x (M, K) into u8
+//     (M, Kp) and w (K, N) into s8 stored transposed as (N, Kp), both
+//     K-major as wgmma takes 8-bit operands, Kp = K rounded up to 16
+//     bytes (TMA's stride rule) and zero-filled (level 0 adds nothing).
+//     The w pass transposes through shared memory, so its float4 reads
+//     along N and its 16-byte writes along K both stay coalesced. A NaN
+//     has no level: it packs as 0 and sets a per-row (x) or per-column
+//     (w) flag, and the epilogue writes NaN there, as the reference's
+//     NaN * 0 does. +-inf clips.
+//   * The GEMM (imac_mvm_int8_kernel): one producer warpgroup, of which
+//     one thread keeps TMA loads of 128-byte K slices of both operands
+//     (128-byte swizzle) in flight through a ring of kStages stages in
+//     shared memory, full/empty mbarriers per stage; one or two consumer
+//     warpgroups (64 or 128 rows) each run wgmma.m64n128k32.s32.u8.s8 on
+//     the stages that have arrived. The sums are s32 and exact:
+//     |ix @ r| <= 255 * 127 * K < 2^31 for K <= 66,000 (guarded).
+//   * The epilogue writes y = float((double)isum * c), c = double(step) / n
+//     from the host: the correctly rounded value of the exact sum, which no
+//     order of summation changes. The plain version imac_mvm_levels_ref
+//     (ref.py) forms the same sum exactly in float64 and equals it bit for
+//     bit; against the float32 reference it holds at the tile's tolerance.
+//   * Split-K: the splits of one output tile form a cluster (<= 8) and sum
+//     their s32 partial tiles over distributed shared memory. Integer sums
+//     are associative, so relaunches are bit-identical. The plan splits K
+//     only when the output tiles are fewer than one wave (M = 32: 86 or 32
+//     column tiles for 132 SMs).
+// Bound: the pack reads x and w once (4 * K * N bytes of w dominate at
+// small M) and writes 1 byte per element; the GEMM streams the s8 copy
+// of w; at M = 2048 the operations (2 * M * K * N at 1,979 int8 TOPS) and
+// the bytes are within a few percent of each other.
+//
+// M > 16, other quantisers (clip only, levels > 128, dac_bits > 8), or
+// K > 66,000: a shared-memory tiled GEMM, 64x64x16 tiles
 // with 4x4 micro-tiles. Each thread loads its share of the next x and w
 // slices into registers while the current slice is multiplied from shared
 // memory, and quantises each element as it stores it to shared memory, so
@@ -68,14 +109,13 @@
 // until the first has arrived. The ragged M/K/N edges are masked
 // (out-of-range elements load as 0, which both quantisers map to 0)
 // instead of padded to 128 as the TPU wrapper does. It is bound by
-// 2*M*K*N fp32 operations at 67 TFLOP/s (the CUDA-core rate; the
-// quantised operands are small exact integers times a scale, so int8
-// tensor cores or wgmma are its later redesign).
+// 2*M*K*N fp32 operations at 67 TFLOP/s (the CUDA-core rate).
 //
-// tools/time_imac_mvm_tiles.py times the two routes against each other at
-// the serving shapes (M bucket 0 launches the 64x64 tile at any M).
+// tools/time_imac_mvm_tiles.py times the three routes against each other
+// at the serving shapes (M bucket 0 launches the 64x64 tile at any M).
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -474,7 +514,467 @@ cudaError_t max_clusters(const Plan& p, bool vec, int* clusters) {
 }
 
 // ---------------------------------------------------------------------------
-// M > 16: the 64x64x16 tile.
+// M >= 9, integer quantisers: pack to levels, then u8 x s8 -> s32 on wgmma.
+// ---------------------------------------------------------------------------
+
+constexpr int kPackThreads = 256;
+constexpr int kInt8BK = 128;  // K bytes per ring stage: one 128-byte swizzled row per operand row
+constexpr int kInt8BN = 128;  // output columns per block: the wgmma's n
+constexpr int kInt8MaxK = 66000;  // 255 * 127 * K < 2^31: the s32 sums are exact
+
+__device__ __forceinline__ bool is_nan(float v) { return v != v; }
+
+// The DAC level rint(clip(x, 0, 1) * n) of dac() (0 for NaN, flagged).
+__device__ __forceinline__ uint32_t dac_level(float x, float n, bool& nan) {
+  x = clip(x, 0.0f, 1.0f);
+  nan |= is_nan(x);
+  return is_nan(x) ? 0u : static_cast<uint32_t>(rintf(__fmul_rn(x, n)));
+}
+
+// The weight level sign(w) * rint(|clip(w, -1, 1)| / step) of wquant()
+// (0 for NaN, flagged), as a byte.
+__device__ __forceinline__ uint32_t weight_level(float w, float step, bool& nan) {
+  w = clip(w, -1.0f, 1.0f);
+  nan |= is_nan(w);
+  if (is_nan(w)) return 0u;
+  const float s = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);
+  return static_cast<uint32_t>(static_cast<int>(__fmul_rn(s, rintf(__fdiv_rn(fabsf(w), step))))) &
+         0xffu;
+}
+
+// x (M, K) -> xq (M, Kp) u8 levels; x_nan[m] = 1 where row m holds a NaN.
+// One thread per 16-byte chunk of xq (16 consecutive k of one row); k >= K
+// packs as 0. VEC: the chunk's 16 values load as 16-byte vectors (K a
+// multiple of 4 for float32, 8 for bfloat16, x 16-byte aligned).
+template <typename TX, bool VEC>
+__global__ void __launch_bounds__(kPackThreads)
+imac_mvm_pack_x_kernel(const TX* __restrict__ x, uint8_t* __restrict__ xq,
+                       int* __restrict__ x_nan, int m_rows, int k_dim, int kp, int dac_n) {
+  const int chunks = kp / 16;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kPackThreads + threadIdx.x;
+  if (e >= static_cast<int64_t>(m_rows) * chunks) return;
+  const int m = static_cast<int>(e / chunks);
+  const int k0 = static_cast<int>(e % chunks) * 16;
+  const TX* row = x + static_cast<int64_t>(m) * k_dim;
+  float v[16];
+  if (VEC && k0 + 16 <= k_dim) {
+    if constexpr (sizeof(TX) == 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 f = reinterpret_cast<const float4*>(row + k0)[q];
+        v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint4 raw = reinterpret_cast<const uint4*>(row + k0)[q];
+        const TX* b = reinterpret_cast<const TX*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[8 * q + j] = to_float(b[j]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = k0 + j < k_dim ? to_float(row[k0 + j]) : 0.0f;
+  }
+  const float n = static_cast<float>(dac_n);
+  uint32_t word[4] = {0u, 0u, 0u, 0u};
+  bool nan = false;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) word[j / 4] |= dac_level(v[j], n, nan) << (8 * (j % 4));
+  *reinterpret_cast<uint4*>(xq + static_cast<int64_t>(m) * kp + k0) =
+      make_uint4(word[0], word[1], word[2], word[3]);
+  if (nan) x_nan[m] = 1;
+}
+
+// w (K, N) float32 -> wq (N, Kp) s8 levels, transposed; w_nan[n] = 1 where
+// column n holds a NaN. A block packs a 64 (K) x 64 (N) tile: thread
+// (tn, tk) loads rows k0 + 4tk .. +3 of columns n0 + 4tn .. +3 (float4
+// along N: a warp reads 2 rows x 256 contiguous bytes), packs each
+// column's 4 levels into one word of the transposed tile in shared memory,
+// and then writes one 16-byte chunk of it (4 threads: 64 contiguous
+// bytes of one output row). VEC: float4 loads (N % 4 == 0, w aligned).
+template <bool VEC>
+__global__ void __launch_bounds__(kPackThreads)
+imac_mvm_pack_w_kernel(const float* __restrict__ w, int8_t* __restrict__ wq,
+                       int* __restrict__ w_nan, int k_dim, int n_cols, int kp, float step) {
+  __shared__ uint32_t tile[64][17];  // [n][k / 4], padded against bank conflicts
+  const int tid = threadIdx.x;
+  const int tn = tid % 16, tk = tid / 16;
+  const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+  const int col = n0 + 4 * tn;
+  float v[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * tk + i;
+    const float* src = w + static_cast<int64_t>(k) * n_cols + col;
+    if (VEC) {
+      const float4 f = k < k_dim && col < n_cols ? *reinterpret_cast<const float4*>(src)
+                                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[i][0] = f.x, v[i][1] = f.y, v[i][2] = f.z, v[i][3] = f.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = k < k_dim && col + j < n_cols ? src[j] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bool nan = false;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) word |= weight_level(v[i][j], step, nan) << (8 * i);
+    tile[4 * tn + j][tk] = word;
+    if (nan && col + j < n_cols) w_nan[col + j] = 1;
+  }
+  __syncthreads();
+  const int n = tid / 4, c = tid % 4;
+  const int kc = k0 + 16 * c;
+  if (n0 + n < n_cols && kc < kp)
+    *reinterpret_cast<uint4*>(wq + static_cast<int64_t>(n0 + n) * kp + kc) =
+        make_uint4(tile[n][4 * c], tile[n][4 * c + 1], tile[n][4 * c + 2], tile[n][4 * c + 3]);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (c0 = K byte, c1 = row) of `map` into shared memory at
+// `dst`, completing `bytes` on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzled
+// rows (as TMA's SWIZZLE_128B writes them): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 x 128 s32, the warpgroup's fragment) += A (64 x 32 u8) B^T (128 x 32 s8).
+__device__ __forceinline__ void wgmma_u8s8(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The shared memory of the GEMM with WGS consumer warpgroups (64 * WGS rows).
+template <int WGS>
+struct Int8Layout {
+  static constexpr int kBM = 64 * WGS;
+  static constexpr int kStages = WGS == 1 ? 4 : 6;
+  static constexpr int kABytes = kBM * kInt8BK;
+  static constexpr int kStageBytes = kABytes + kInt8BN * kInt8BK;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kRedStride = kInt8BN + 4;  // s32 per row of the partial tile
+  static constexpr size_t kBytes = 1024 + kRingBytes + 2 * kStages * sizeof(uint64_t);
+  static_assert(kBM * kRedStride * 4 <= kRingBytes, "the partial tile reuses the ring");
+  static_assert(kStageBytes % 1024 == 0 && kABytes % 1024 == 0, "1024-byte aligned stages");
+};
+
+// Grid: (column tiles x splits, row tiles), the splits of one output tile a
+// cluster along x. Block rank r of cluster t owns columns [128t, 128t + 128),
+// rows [BM * blockIdx.y, +BM) and K steps [r * chunk, min((r + 1) * chunk,
+// k_steps)) of 128 bytes. Threads: WGS consumer warpgroups, then one
+// producer warpgroup (one thread issues the TMA loads).
+template <int WGS>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+imac_mvm_int8_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w, float* __restrict__ y,
+                     const int* __restrict__ x_nan, const int* __restrict__ w_nan, int m_rows,
+                     int n_cols, int k_steps, int chunk, double c) {
+  using L = Int8Layout<WGS>;
+  namespace cg = cooperative_groups;
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t full = ring + L::kRingBytes;                      // kStages mbarriers
+  const uint32_t empty = full + L::kStages * sizeof(uint64_t);     // kStages mbarriers
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int split = static_cast<int>(cluster.block_rank());
+  const int n0 = (blockIdx.x / splits) * kInt8BN;
+  const int m0 = blockIdx.y * L::kBM;
+  const int s0 = split * chunk;
+  const int steps = min(chunk, k_steps - s0);
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WGS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == WGS) {
+    // Producer: keep the ring full. A stage is refilled once every
+    // consumer warpgroup has released it (its empty barrier's phase).
+    if (t == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % L::kStages;
+        mbar_wait(empty + 8 * s, ((i / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, L::kStageBytes);
+        const uint32_t dst = ring + s * L::kStageBytes;
+        tma_load(dst, &tm_x, (s0 + i) * kInt8BK, m0, full + 8 * s);
+        tma_load(dst + L::kABytes, &tm_w, (s0 + i) * kInt8BK, n0, full + 8 * s);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the tile, all
+    // 128 columns; four k32 steps per stage, the descriptors advanced by
+    // 32 bytes inside the swizzled rows.
+    int acc[64];
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] = 0;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % L::kStages;
+      mbar_wait(full + 8 * s, (i / L::kStages) & 1);
+      const uint32_t a = ring + s * L::kStageBytes + wg * 64 * kInt8BK;
+      const uint32_t b = ring + s * L::kStageBytes + L::kABytes;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kInt8BK / 32; ++kk)
+        wgmma_u8s8(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (t == 0) mbar_arrive(empty + 8 * s);
+    }
+    // Every consumer is done with the ring: it now holds the block's
+    // partial tile red[row][col] (s32), from the wgmma fragment layout
+    // (warp w of the warpgroup: rows 16w + lane/4 (+8); columns
+    // 8j + 2(lane%4) (+1) for j < 16).
+    asm volatile("bar.sync 1, %0;\n" ::"n"(WGS * 128) : "memory");
+    int* red = reinterpret_cast<int*>(ring_ptr);
+    const int warp = t / 32, lane = t % 32;
+#pragma unroll
+    for (int r = 0; r < 64; ++r) {
+      const int row = 64 * wg + 16 * warp + lane / 4 + 8 * ((r / 2) % 2);
+      const int col = 8 * (r / 4) + 2 * (lane % 4) + r % 2;
+      red[row * L::kRedStride + col] = acc[r];
+    }
+  }
+  cluster.sync();
+
+  // Sum the cluster's partial tiles over distributed shared memory (exact
+  // in s32, so the order does not matter), scale, and write y; the
+  // cluster's blocks share out the tile's elements.
+  const int* red = reinterpret_cast<const int*>(ring_ptr);
+  constexpr int kThreads = (WGS + 1) * 128;
+  for (int e = split * kThreads + threadIdx.x; e < L::kBM * kInt8BN; e += splits * kThreads) {
+    const int row = e / kInt8BN, col = e % kInt8BN;
+    const int m = m0 + row, n = n0 + col;
+    if (m >= m_rows || n >= n_cols) continue;
+    int sum = 0;
+    for (int q = 0; q < splits; ++q) sum += cluster.map_shared_rank(red, q)[row * L::kRedStride + col];
+    y[static_cast<int64_t>(m) * n_cols + n] =
+        (x_nan[m] | w_nan[n]) ? __int_as_float(0x7fc00000)
+                              : __double2float_rn(__dmul_rn(static_cast<double>(sum), c));
+  }
+  cluster.sync();  // no block leaves while another reads its partial tile
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, through the runtime's entry-point query
+// (the library links no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (rows, kp) u8 matrix, row-major, in boxes of box_rows
+// rows x 128 bytes with the 128-byte swizzle; out-of-range boxes fill 0.
+cudaError_t levels_map(CUtensorMap* map, const void* base, int rows, int kp, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kp), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kp)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kInt8BK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+using Int8Kernel = void (*)(CUtensorMap, CUtensorMap, float*, const int*, const int*, int, int,
+                            int, int, double);
+
+Int8Kernel int8_kernel(int wgs) {
+  switch (wgs) {
+    case 1: return imac_mvm_int8_kernel<1>;
+    case 2: return imac_mvm_int8_kernel<2>;
+    default: return nullptr;
+  }
+}
+
+size_t int8_smem_bytes(int wgs) {
+  return wgs == 1 ? Int8Layout<1>::kBytes : Int8Layout<2>::kBytes;
+}
+
+// Opt the GEMM into its shared memory and fill in its cluster launch
+// configuration (grid: n_tiles * splits x m_tiles blocks).
+cudaError_t int8_config(int wgs, int splits, int n_tiles, int m_tiles, cudaStream_t stream,
+                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  const Int8Kernel kernel = int8_kernel(wgs);
+  if (kernel == nullptr || splits < 1 || splits > 8) return cudaErrorInvalidValue;
+  const size_t smem = int8_smem_bytes(wgs);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_tiles * splits), static_cast<unsigned>(m_tiles));
+  cfg.blockDim = dim3((wgs + 1) * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename TX>
+cudaError_t launch_pack_x(const void* x, uint8_t* xq, int* x_nan, int m, int k, int kp,
+                          int dac_n, cudaStream_t stream) {
+  const int64_t chunks = static_cast<int64_t>(m) * (kp / 16);
+  const unsigned blocks = static_cast<unsigned>((chunks + kPackThreads - 1) / kPackThreads);
+  const bool vec = k % (16 / sizeof(TX)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (vec)
+    imac_mvm_pack_x_kernel<TX, true><<<blocks, kPackThreads, 0, stream>>>(
+        static_cast<const TX*>(x), xq, x_nan, m, k, kp, dac_n);
+  else
+    imac_mvm_pack_x_kernel<TX, false><<<blocks, kPackThreads, 0, stream>>>(
+        static_cast<const TX*>(x), xq, x_nan, m, k, kp, dac_n);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pack_w(const void* w, int8_t* wq, int* w_nan, int k, int n, int kp,
+                          float step, cudaStream_t stream) {
+  const dim3 grid((n + 63) / 64, (kp + 63) / 64);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (vec)
+    imac_mvm_pack_w_kernel<true><<<grid, kPackThreads, 0, stream>>>(
+        static_cast<const float*>(w), wq, w_nan, k, n, kp, step);
+  else
+    imac_mvm_pack_w_kernel<false><<<grid, kPackThreads, 0, stream>>>(
+        static_cast<const float*>(w), wq, w_nan, k, n, kp, step);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_int8(const void* x, bool x_bf16, const void* w, void* y, int m, int k, int n,
+                        int dac_n, int levels, float step, double c, void* xq, void* wq,
+                        int* flags, int kp, int wgs, int splits, int chunk, cudaStream_t stream) {
+  const int k_steps = (kp + kInt8BK - 1) / kInt8BK;
+  const bool ok = dac_n >= 1 && dac_n <= 255 && levels >= 2 && levels <= 128 && k >= 1 &&
+                  k <= kInt8MaxK && kp % 16 == 0 && kp >= k && kp < k + 16 && chunk >= 1 &&
+                  static_cast<int64_t>(splits) * chunk >= k_steps &&
+                  static_cast<int64_t>(splits - 1) * chunk < k_steps &&
+                  reinterpret_cast<uintptr_t>(xq) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+  if (!ok) return cudaErrorInvalidValue;
+  const int bm = 64 * wgs;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = int8_config(wgs, splits, (n + kInt8BN - 1) / kInt8BN, (m + bm - 1) / bm,
+                                stream, cfg, attr);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_x, tm_w;
+  if ((err = levels_map(&tm_x, xq, m, kp, bm)) != cudaSuccess) return err;
+  if ((err = levels_map(&tm_w, wq, n, kp, kInt8BN)) != cudaSuccess) return err;
+  int* x_nan = flags;
+  int* w_nan = flags + m;
+  if ((err = cudaMemsetAsync(flags, 0, sizeof(int) * (static_cast<size_t>(m) + n), stream)) !=
+      cudaSuccess)
+    return err;
+  err = x_bf16 ? launch_pack_x<__nv_bfloat16>(x, static_cast<uint8_t*>(xq), x_nan, m, k, kp,
+                                              dac_n, stream)
+               : launch_pack_x<float>(x, static_cast<uint8_t*>(xq), x_nan, m, k, kp, dac_n,
+                                      stream);
+  if (err != cudaSuccess) return err;
+  if ((err = launch_pack_w(w, static_cast<int8_t*>(wq), w_nan, k, n, kp, step, stream)) !=
+      cudaSuccess)
+    return err;
+  err = cudaLaunchKernelEx(&cfg, int8_kernel(wgs), tm_x, tm_w, static_cast<float*>(y),
+                           static_cast<const int*>(x_nan), static_cast<const int*>(w_nan), m, n,
+                           k_steps, chunk, c);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// M > 16, other quantisers: the 64x64x16 tile.
 // ---------------------------------------------------------------------------
 
 template <typename TX, int BM, int BN, int BK, int TM, int TN>
@@ -533,4 +1033,39 @@ extern "C" int imac_mvm_splitk_max_clusters(int x_is_bf16, int vec, int m_bucket
   const Plan p{m_bucket, bn, splits, x_rows, x_rows};
   return static_cast<int>(x_is_bf16 ? max_clusters<__nv_bfloat16>(p, vec != 0, clusters)
                                     : max_clusters<float>(p, vec != 0, clusters));
+}
+
+// y (m, n) float32 = DAC(x) @ Q(w) through the integer route, for integer
+// quantisers (1 <= dac_n <= 255, 2 <= levels <= 128) and k <= 66,000: x
+// (m, k) float32 (or bfloat16 when x_is_bf16) and w (k, n) float32, all
+// contiguous, on `stream` of CUDA device `device`. Workspace from the
+// caller: xq (m * kp bytes) and wq (n * kp bytes), 16-byte aligned, and
+// flags (m + n ints); kp = k rounded up to 16. c = double(step) / dac_n.
+// The plan: wgs consumer warpgroups (64 * wgs rows a block), `splits` K
+// ranges of `chunk` 128-byte steps (the cluster size, <= 8). Four
+// launches in order on the stream: zero the flags, pack x, pack w, the
+// GEMM. Returns the CUDA error code (0 = success).
+extern "C" int imac_mvm_int8_launch(const void* x, int x_is_bf16, const void* w, void* y, int m,
+                                    int k, int n, int dac_n, int levels, float step, double c,
+                                    void* xq, void* wq, void* flags, int kp, int wgs, int splits,
+                                    int chunk, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_int8(x, x_is_bf16 != 0, w, y, m, k, n, dac_n, levels, step, c, xq, wq,
+                    static_cast<int*>(flags), kp, wgs, splits, chunk,
+                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The most clusters of `splits` blocks of the integer route's GEMM with
+// wgs consumer warpgroups that device `device` runs at once, into
+// *clusters. Returns the CUDA error code (0 = success).
+extern "C" int imac_mvm_int8_max_clusters(int wgs, int splits, int device, int* clusters) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = int8_config(wgs, splits, 1, 1, nullptr, cfg, attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, int8_kernel(wgs), &cfg));
 }

@@ -20,6 +20,7 @@ from repro.core import partition as jpartition
 from repro.core import solver as jsolver
 from repro.core.digital import mlp_forward as j_mlp_forward
 from repro.core.interconnect import DEFAULT_INTERCONNECT as J_WIRES
+from repro.core.interconnect import scaled_interconnect as j_scaled_interconnect
 from repro.core.neurons import get_neuron as j_get_neuron
 from repro_torch.core import devices as tdevices
 from repro_torch.core import imac as timac
@@ -28,6 +29,7 @@ from repro_torch.core import partition as tpartition
 from repro_torch.core import solver as tsolver
 from repro_torch.core.digital import accuracy, init_mlp, mlp_forward, train_mlp
 from repro_torch.core.interconnect import DEFAULT_INTERCONNECT as T_WIRES
+from repro_torch.core.interconnect import scaled_interconnect
 from repro_torch.core.neurons import get_neuron as t_get_neuron
 from repro_torch.data.digits import make_digits, train_test_split
 from repro_torch.device import resolve_device
@@ -70,6 +72,28 @@ def test_partition_matches_reference(fan_in, fan_out, hp, vp):
         tpartition.combine_outputs(torch.as_tensor(per_tile), tp).numpy(),
         np.asarray(jpartition.combine_outputs(jnp.asarray(per_tile), jp)), rtol=1e-6,
     )
+
+
+@pytest.mark.parametrize("topology,rows,cols,hp,vp", [
+    ((400, 120, 84, 10), 32, 32, None, None),       # the paper's Table III arithmetic
+    ((400, 120, 84, 10), 64, 16, None, None),
+    ((20, 7, 3), 8, 8, (3, 1), (2, 1)),             # given partitions
+])
+def test_plan_topology_matches_reference(topology, rows, cols, hp, vp):
+    got = tpartition.plan_topology(topology, rows, cols, hp, vp)
+    want = jpartition.plan_topology(topology, rows, cols, hp, vp)
+    assert [(p.hp, p.vp, p.rows, p.cols, p.total_rows, p.total_cols) for p in got] == \
+        [(p.hp, p.vp, p.rows, p.cols, p.total_rows, p.total_cols) for p in want]
+    with pytest.raises(ValueError, match="length mismatch"):
+        tpartition.plan_topology(topology, rows, cols, (1,), (1,))
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.0, 2.5])
+def test_scaled_interconnect_matches_reference(scale):
+    got, want = scaled_interconnect(scale), j_scaled_interconnect(scale)
+    for field in ("resistivity", "thickness", "width", "pitch", "cap_per_m"):
+        assert getattr(got, field) == getattr(want, field)
+    assert got.r_segment == want.r_segment and got.c_segment == want.c_segment
 
 
 def test_build_plans_paper_partitions():

@@ -116,6 +116,78 @@ def test_quant_args_are_the_references_constants(dac_bits, levels):
         assert np.float32(step) == np.float32(1.0 / (levels - 1))
 
 
+def _boundary_inputs(n, levels):
+    """x at every DAC .5 boundary of n steps, w at every level .5 boundary,
+    the clip edges, signed zeros and random values."""
+    step = np.float32(1.0 / (levels - 1))
+    x = np.concatenate([
+        (np.arange(n + 1, dtype=np.float32) + np.float32(0.5)) / np.float32(n),
+        np.float32([-0.3, 0.0, 1.0, 1.7]),
+        np.random.default_rng(0).uniform(0, 1, 500).astype(np.float32),
+    ])
+    w = np.concatenate([
+        (np.arange(-levels, levels + 1, dtype=np.float32) + np.float32(0.5)) * step,
+        np.float32([-2.0, -1.0, -0.0, 0.0, 1.0, 3.0]),
+        np.random.default_rng(1).uniform(-1, 1, 500).astype(np.float32),
+    ])
+    return torch.as_tensor(x), torch.as_tensor(w)
+
+
+@pytest.mark.parametrize("dac_bits,levels", [(1, 2), (4, 4), (8, 16), (8, 128), (3, 5)])
+def test_levels_times_their_scale_are_the_quantisers(dac_bits, levels):
+    """The integer route's levels, scaled, are the quantisers' values
+    exactly, .5 boundaries included; they are integers in u8 / s8 range."""
+    n = (1 << dac_bits) - 1
+    x, w = _boundary_inputs(n, levels)
+    ix, r = mvm_ref.dac_levels(x, dac_bits), mvm_ref.weight_levels(w, levels)
+    step = torch.tensor(1.0 / (levels - 1), dtype=torch.float32)
+    assert torch.equal(ix / torch.tensor(float(n)), mvm_ref.dac_quant(x, dac_bits))
+    assert torch.equal(r * step, mvm_ref.weight_quant(w, levels))
+    assert torch.equal(ix, ix.round()) and 0 <= float(ix.min()) and float(ix.max()) <= n <= 255
+    assert torch.equal(r, r.round()) and float(r.abs().max()) <= levels - 1 <= 127
+    assert mvm_ref.level_scale(dac_bits, levels) == float(np.float32(1.0 / (levels - 1))) / n
+
+
+def test_levels_refuse_clip_only_quantisers():
+    with pytest.raises(ValueError, match="dac_bits"):
+        mvm_ref.dac_levels(torch.zeros(3), 0)
+    with pytest.raises(ValueError, match="levels"):
+        mvm_ref.weight_levels(torch.zeros(3), 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 129, 5), (33, 300, 129), (64, 16, 200), (3, 40, 9)])
+@pytest.mark.parametrize("dac_bits,levels", [(8, 16), (4, 4), (1, 2), (8, 128)])
+def test_imac_mvm_levels_ref_matches_plain_and_reference(m, k, n, dac_bits, levels):
+    """The exact integer form against the float32 plain version and the
+    reference's plain version, at the kernel-vs-plain tolerance; bfloat16 x
+    goes through float32 as on the card."""
+    x, w = _mvm_inputs(m * 7 + k + n, m, k, n)
+    x[0, 0], w[1, 0] = 1.3, -1.4                  # clipped on both sides
+    tx, tw = torch.as_tensor(x), torch.as_tensor(w)
+    got = mvm_ref.imac_mvm_levels_ref(tx, tw, dac_bits=dac_bits, levels=levels)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    _close(got, mvm_ref.imac_mvm_ref(tx, tw, dac_bits=dac_bits, levels=levels), k=k)
+    _close(got, j_mvm_ref.imac_mvm_ref(jnp.asarray(x), jnp.asarray(w), dac_bits=dac_bits,
+                                       levels=levels), k=k)
+    xb = tx.to(torch.bfloat16)
+    _close(mvm_ref.imac_mvm_levels_ref(xb, tw, dac_bits=dac_bits, levels=levels),
+           mvm_ref.imac_mvm_ref(xb, tw, dac_bits=dac_bits, levels=levels), k=k)
+
+
+def test_imac_mvm_levels_ref_gives_nan_rows_and_columns():
+    """As the float32 version: NaN in row i of x or column j of w gives NaN
+    in row i or column j of y; +-inf clips."""
+    x, w = _mvm_inputs(3, 20, 50, 12)
+    x[4, 7], w[9, 3] = np.nan, np.nan
+    x[6, 0], w[0, 8] = np.inf, -np.inf
+    got = mvm_ref.imac_mvm_levels_ref(torch.as_tensor(x), torch.as_tensor(w))
+    want = mvm_ref.imac_mvm_ref(torch.as_tensor(x), torch.as_tensor(w))
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(got[4].isnan().all()) and bool(got[:, 3].isnan().all())
+    assert int(got.isnan().sum()) == 12 + 20 - 1
+    _close(torch.nan_to_num(got), torch.nan_to_num(want), k=50)
+
+
 @pytest.mark.parametrize("dac_bits,levels", [(8, None), (12, 256), (4, 4)])
 def test_analog_linear_matches_reference(dac_bits, levels):
     rng = np.random.default_rng(dac_bits)
@@ -127,6 +199,28 @@ def test_analog_linear_matches_reference(dac_bits, levels):
     want = j_analog_linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), tech="PCM",
                            dac_bits=dac_bits, levels=levels, interpret=True)
     _close(got, want, k=32 * 4)   # the output is rescaled by x_rng * max|w| ~ 4
+
+
+@pytest.mark.parametrize("kind", ["float", "array"])
+def test_analog_linear_takes_the_references_w_scale(kind):
+    """A given `w_scale` replaces max|w| + 1e-12 on both sides."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((6, 32)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((32, 16))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(16)).astype(np.float32)
+    scale = 1.75                                  # above max|w|: weights map inside [-1, 1]
+    t_scale = scale if kind == "float" else torch.tensor(scale)
+    j_scale = scale if kind == "float" else jnp.float32(scale)
+    got = mvm_ops.analog_linear(torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(b),
+                                w_scale=t_scale)
+    want = j_analog_linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), w_scale=j_scale,
+                           interpret=True)
+    _close(got, want, k=32 * 4)
+    default = mvm_ops.analog_linear(torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(b))
+    assert not torch.equal(got, default)
+    same = mvm_ops.analog_linear(torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(b),
+                                 w_scale=torch.as_tensor(np.abs(w).max()) + 1e-12)
+    assert torch.equal(same, default)
 
 
 def test_analog_linear_approximates_digital():
@@ -172,7 +266,8 @@ YI_FFN = [(4096, 11008), (11008, 4096)]
 @pytest.mark.parametrize("k,n", [*YI_FFN, (4097, 4095), (300, 129), (1, 1), (100_000, 64),
                                  (257, 5)])
 def test_launch_plan_covers_every_row_and_column(m, k, n):
-    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters)
+    # Clip-only quantisers keep M = 9-16 on the split-K route.
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters, dac_bits=0, levels=1)
     assert plan.route == "splitk" and m <= plan.m_bucket and plan.m_bucket in mvm_ops.M_BUCKETS
     assert 1 <= plan.splits <= 8                 # the portable cluster size
     rows = np.zeros(k, dtype=int)
@@ -195,7 +290,7 @@ def test_launch_plan_covers_every_row_and_column(m, k, n):
 @pytest.mark.parametrize("m", [4, 12])
 @pytest.mark.parametrize("k,n", YI_FFN)
 def test_launch_plan_runs_two_blocks_per_sm_at_the_serving_shapes(m, k, n):
-    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters, sms=132)
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters, sms=132, dac_bits=0, levels=1)
     assert plan.route == "splitk" and plan.blocks >= 2 * 132
 
 
@@ -214,11 +309,94 @@ def test_launch_plan_skips_what_does_not_fit_and_raises_when_nothing_does():
         mvm_ops.launch_plan(4, 4096, 11008, lambda *a: 0)
 
 
-@pytest.mark.parametrize("m,k,n", [(17, 4096, 11008), (2048, 4096, 11008), (1003, 300, 129)])
-def test_launch_plan_takes_the_64x64_tile_past_m_16(m, k, n):
-    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters)
-    assert plan.route == "tile64" and plan.m_bucket == 0
-    assert plan.blocks == -(-n // 64) * -(-m // 64)
+def _h100_int8_clusters(wgs, splits):
+    """Stands in for the integer route's occupancy query: 2 blocks per SM
+    with one consumer warpgroup, 1 with two (their shared memory)."""
+    return (2 if wgs == 1 else 1) * 132 // splits
+
+
+# M > 16 takes one of two routes: the integer route for integer quantisers
+# (1 <= dac_bits <= 8, 2 <= levels <= 128) and K <= 66,000, the 64x64 tile
+# otherwise. The first three cases keep their ids from before the integer
+# route, with quantisers that still take the tile.
+@pytest.mark.parametrize("m,k,n,dac_bits,levels,route", [
+    pytest.param(17, 4096, 11008, 8, 256, "tile64", id="17-4096-11008"),
+    pytest.param(2048, 4096, 11008, 0, 1, "tile64", id="2048-4096-11008"),
+    pytest.param(1003, 300, 129, 9, 16, "tile64", id="1003-300-129"),
+    pytest.param(32, 70_000, 129, 8, 16, "tile64", id="k-past-the-exact-range"),
+    pytest.param(17, 4096, 11008, 8, 16, "int8", id="int8-17-4096-11008"),
+    pytest.param(2048, 4096, 11008, 4, 128, "int8", id="int8-2048-4096-11008"),
+    pytest.param(1003, 300, 129, 1, 2, "int8", id="int8-1003-300-129"),
+])
+def test_launch_plan_takes_the_64x64_tile_past_m_16(m, k, n, dac_bits, levels, route):
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters, dac_bits=dac_bits, levels=levels,
+                               int8_clusters=_h100_int8_clusters)
+    assert plan.route == route
+    if route == "tile64":
+        assert plan.m_bucket == 0 and plan.blocks == -(-n // 64) * -(-m // 64)
+    else:
+        bm = plan.m_bucket
+        assert bm == (64 if m <= 64 else 128) and plan.bn == 128
+        assert plan.blocks == -(-m // bm) * -(-n // 128) * plan.splits
+
+
+@pytest.mark.parametrize("m,dac_bits,levels,route", [
+    (1, 8, 16, "splitk"), (8, 8, 16, "splitk"), (9, 8, 16, "int8"), (12, 8, 16, "int8"),
+    (16, 8, 16, "int8"), (16, 0, 1, "splitk"), (12, 8, 256, "splitk"), (17, 8, 16, "int8"),
+    (32, 8, 16, "int8"), (32, 8, 128, "int8"), (32, 8, 129, "tile64"), (32, 9, 16, "tile64"),
+    (32, 0, 16, "tile64"), (32, 8, 1, "tile64"), (4096, 1, 2, "int8"),
+])
+def test_launch_plan_picks_the_route_by_m_and_quantisers(m, dac_bits, levels, route):
+    plan = mvm_ops.launch_plan(m, 4096, 11008, _h100_clusters, dac_bits=dac_bits, levels=levels,
+                               int8_clusters=_h100_int8_clusters)
+    assert plan.route == route
+    assert mvm_ops.integer_quantisers(dac_bits, levels) == (1 <= dac_bits <= 8 and
+                                                            2 <= levels <= 128)
+
+
+@pytest.mark.parametrize("m", [9, 12, 17, 32, 64, 65, 128, 2048])
+@pytest.mark.parametrize("k,n", [*YI_FFN, (4097, 129), (300, 129), (1, 1), (65_999, 64)])
+def test_int8_plan_covers_every_row_column_and_k_step(m, k, n):
+    plan = mvm_ops.launch_plan(m, k, n, _h100_clusters, int8_clusters=_h100_int8_clusters)
+    assert plan.route == "int8" and 1 <= plan.splits <= 8 and plan.k_chunk % 128 == 0
+    kp = mvm_ops.int8_padded_k(k)
+    assert kp % 16 == 0 and k <= kp < k + 16
+    steps = -(-kp // 128)
+    chunk = plan.k_chunk // 128
+    covered = np.zeros(steps, dtype=int)
+    for s in range(plan.splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, steps)
+        assert lo < hi                           # no split is empty
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if plan.splits > 1:                          # split only below one wave
+        assert -(-m // plan.m_bucket) * -(-n // 128) < _h100_int8_clusters(plan.m_bucket // 64, 1)
+        assert chunk >= mvm_ops.INT8_MIN_SPLIT_STEPS
+    assert plan.waves == -(-plan.blocks // plan.resident)
+
+
+def test_int8_plan_fills_the_card_at_the_long_context_tick():
+    """M = 32 slots: 86 or 32 column tiles for 132 SMs, so K is split."""
+    for k, n in YI_FFN:
+        plan = mvm_ops.launch_plan(32, k, n, _h100_clusters, int8_clusters=_h100_int8_clusters)
+        assert plan.route == "int8" and plan.splits > 1 and plan.blocks >= 132
+
+
+def test_int8_route_refuses_k_past_its_exact_range():
+    mvm_ops.check_int8_k(mvm_ops.INT8_MAX_K)
+    assert 255 * 127 * mvm_ops.INT8_MAX_K < 2**31
+    with pytest.raises(ValueError, match="2\\^31"):
+        mvm_ops.check_int8_k(mvm_ops.INT8_MAX_K + 1)
+    with pytest.raises(ValueError, match="int8_clusters"):
+        mvm_ops.launch_plan(32, 4096, 11008, _h100_clusters)
+
+
+@pytest.mark.parametrize("m,n,kp", [(17, 129, 4112), (32, 11008, 4096), (2048, 4096, 11008),
+                                    (1, 1, 16)])
+def test_int8_workspace_parts_are_aligned_and_disjoint(m, n, kp):
+    w_off, flags_off, size = mvm_ops._workspace_offsets(m, n, kp)
+    assert w_off % 256 == 0 and flags_off % 256 == 0    # TMA wants 16-byte aligned bases
+    assert m * kp <= w_off and w_off + n * kp <= flags_off and size == flags_off + 4 * (m + n)
 
 
 def test_imac_mvm_refuses_other_devices_and_shapes():
@@ -426,12 +604,14 @@ def cuda():
     return torch.device("cuda")
 
 
-# M at and around the split-K route's buckets and its edge (16 | 17), K not
-# a multiple of the splits, N not a multiple of 4 (one-float w loads); and
-# the prefills' M = 8 (bucket 8, full) and 10 (bucket 12, partial) at
-# yi-9b's FFN shapes.
+# M at and around the split-K route's buckets and its edge (16 | 17), the
+# integer route's one- and two-warpgroup row tiles (32, 33, 64; 1003), K
+# not a multiple of the splits or of 16, N not a multiple of 4 (one-float
+# w loads); and the prefills' M = 8 (bucket 8, full) and 10 (bucket 12,
+# partial) at yi-9b's FFN shapes.
 _CARD_SHAPES = [(4, 4096, 11008), (12, 11008, 4096), (1003, 300, 129), (1, 1, 1)] + [
-    (m, k, n) for m in (1, 4, 12, 16, 17) for k in (4097, 11008) for n in (129, 4095)] + [
+    (m, k, n) for m in (1, 4, 12, 16, 17, 32, 33, 64) for k in (4097, 11008)
+    for n in (129, 4095)] + [
     (m, k, n) for m in (8, 10) for k, n in YI_FFN]
 
 
@@ -451,7 +631,7 @@ def test_imac_mvm_kernel_matches_plain_on_card(cuda, m, k, n, dac_bits, levels):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (12, 11008, 4096), (16, 4097, 4095),
-                                   (300, 300, 129)])
+                                   (300, 300, 129), (32, 4096, 11008)])
 def test_imac_mvm_kernel_relaunch_is_bit_identical_on_card(cuda, dtype, m, k, n):
     x, w = (torch.as_tensor(a, device=cuda) for a in _mvm_inputs(k, m, k, n))
     x = x.to(dtype)
@@ -461,12 +641,57 @@ def test_imac_mvm_kernel_relaunch_is_bit_identical_on_card(cuda, dtype, m, k, n)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(9, 4096, 11008), (12, 11008, 4096), (17, 4097, 129),
+                                   (32, 4096, 11008), (32, 11008, 4096), (33, 300, 129),
+                                   (64, 11008, 4095), (1003, 300, 129),
+                                   (9, 1, 1), (20, 17, 3), (130, 16, 8)])  # boxes past K, N
+@pytest.mark.parametrize("dac_bits,levels", [(8, 16), (4, 4), (1, 2), (8, 128)])
+def test_imac_mvm_int8_route_is_the_levels_ref_bit_for_bit_on_card(cuda, dtype, m, k, n,
+                                                                   dac_bits, levels):
+    x, w = (torch.as_tensor(a, device=cuda) for a in _mvm_inputs(m + n, m, k, n))
+    x = x.to(dtype)
+    assert mvm_ops.plan_for(x, w, dac_bits=dac_bits, levels=levels).route == "int8"
+    got = mvm_ops.imac_mvm(x, w, dac_bits=dac_bits, levels=levels)
+    want = mvm_ref.imac_mvm_levels_ref(x, w, dac_bits=dac_bits, levels=levels)
+    plain = mvm_ref.imac_mvm_ref(x, w, dac_bits=dac_bits, levels=levels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6 * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(40, 300, 129), (32, 4096, 11008)])
+def test_imac_mvm_int8_route_gives_nan_rows_and_columns_on_card(cuda, m, k, n):
+    x, w = (torch.as_tensor(a, device=cuda) for a in _mvm_inputs(m, m, k, n))
+    x[3, 7], w[11, 5] = float("nan"), float("nan")
+    x[5, 0], w[0, 9] = float("inf"), -float("inf")
+    got = mvm_ops.imac_mvm(x, w)
+    want = mvm_ref.imac_mvm_ref(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan()) and int(got.isnan().sum()) == m + n - 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * k, equal_nan=True)
+    torch.testing.assert_close(got, mvm_ref.imac_mvm_levels_ref(x, w), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", YI_FFN)
+def test_imac_mvm_device_plan_takes_the_int8_route_at_32_slots_on_card(cuda, k, n):
+    x = torch.zeros((32, k), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((k, n), device=cuda)
+    plan = mvm_ops.plan_for(x, w)
+    assert plan.route == "int8" and plan.resident > 0 and plan.waves >= 1
+    assert mvm_ops.plan_for(x, w, levels=256).route == "tile64"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [4, 12])
 @pytest.mark.parametrize("k,n", YI_FFN)
 def test_imac_mvm_device_plan_runs_two_blocks_per_sm_on_card(cuda, m, k, n):
     x = torch.zeros((m, k), device=cuda, dtype=torch.bfloat16)
     w = torch.zeros((k, n), device=cuda)
-    plan = mvm_ops.plan_for(x, w)
+    plan = mvm_ops.plan_for(x, w, dac_bits=0, levels=1)   # M = 12 takes int8 at 8/16
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert plan.route == "splitk" and plan.blocks >= 2 * sms and plan.resident > 0
 

@@ -210,10 +210,10 @@ def test_analog_forward_differs_from_digital_but_stays_close():
 # ------------------------------------------------------------------ engine
 
 
-def _jax_engine_run(jm, params, prompts, *, slots, cache_len, max_tokens):
+def _jax_engine_run(jm, params, prompts, *, slots, cache_len, max_tokens, greedy=True):
     """The reference engine's requests, and the logits rows its tokens were
     taken from, as one {rid: row} per prefill and per decode tick."""
-    eng = JServingEngine(jm, params, JServeConfig(slots=slots, cache_len=cache_len))
+    eng = JServingEngine(jm, params, JServeConfig(slots=slots, cache_len=cache_len, greedy=greedy))
     events = []
     admitted = itertools.count()     # requests are admitted in rid order
     decode = eng._decode
@@ -263,9 +263,9 @@ class RecordingModel:
         return logits, cache
 
 
-def _port_engine_run(tm, prompts, *, slots, cache_len, max_tokens):
+def _port_engine_run(tm, prompts, *, slots, cache_len, max_tokens, greedy=True):
     rec = RecordingModel(tm)
-    eng = ServingEngine(rec, ServeConfig(slots=slots, cache_len=cache_len))
+    eng = ServingEngine(rec, ServeConfig(slots=slots, cache_len=cache_len, greedy=greedy))
     rec.engine = eng
     reqs = [Request(rid=i, prompt=p, max_tokens=max_tokens) for i, p in enumerate(prompts)]
     eng.run(reqs, max_ticks=200)
@@ -320,6 +320,22 @@ def test_engine_matches_reference_engine(analog, monkeypatch):
     _assert_engines_agree(treqs, tevents, jreqs, jevents, tm.cfg.vocab)
     if analog:
         dac.check_all_replayed()
+
+
+def test_engine_takes_greedy_false_and_decodes_like_the_reference():
+    """`greedy=False` is accepted and read by nothing, as in the reference:
+    both engines still decode greedily, to the same tokens as with
+    `greedy=True`."""
+    jm, params, tm = _pair("yi-9b", seed=3, n_layers=2)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, tm.cfg.vocab, size=(4 + i,)) for i in range(3)]
+    kw = dict(slots=2, cache_len=32, max_tokens=5)
+    jreqs, jevents = _jax_engine_run(jm, params, prompts, greedy=False, **kw)
+    treqs, tevents, _ = _port_engine_run(tm, prompts, greedy=False, **kw)
+    assert all(r.done and len(r.output) == 5 for r in treqs)
+    _assert_engines_agree(treqs, tevents, jreqs, jevents, tm.cfg.vocab)
+    greedy, _, _ = _port_engine_run(tm, prompts, **kw)
+    assert [r.output for r in greedy] == [r.output for r in treqs]
 
 
 def test_engine_matches_direct_decode():

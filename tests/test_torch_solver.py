@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+from repro.core import backends as jbackends
 from repro.core import solver as jsolver
 from repro.core.devices import MRAM as J_MRAM
 from repro_torch.core import backends as tbackends
@@ -231,3 +232,30 @@ def test_fused_ignores_tol_and_reports_budget():
     early = tsolver.solve_crossbar(torch.as_tensor(g), torch.as_tensor(v), cp)
     assert got.sweeps == 40
     assert early.sweeps < 40
+
+
+def test_default_backend_name_reads_the_environment_like_the_reference(monkeypatch):
+    monkeypatch.delenv("REPRO_SOLVER_BACKEND", raising=False)
+    assert tbackends.ENV_BACKEND == jbackends.ENV_BACKEND == "REPRO_SOLVER_BACKEND"
+    assert tbackends.default_backend_name() == "tridiag"      # the reference's is "scan"
+    monkeypatch.setenv("REPRO_SOLVER_BACKEND", "fused")
+    assert tbackends.default_backend_name() == jbackends.default_backend_name() == "fused"
+    assert tbackends.get_backend(None).name == "fused"
+    assert tsolver.SolveOptions().resolved().name == "fused"
+
+
+def test_callable_backend_matches_reference():
+    """A bare tridiagonal solve is wrapped as an inner-solve backend named
+    after it, in both packages, and the solve runs through it."""
+    from repro_torch.kernels.tridiag.ref import tridiag_ref
+
+    def thomas(dl, d, du, b):
+        return tridiag_ref(dl, d, du, b)
+
+    tb, jb = tbackends.get_backend(thomas), jbackends.get_backend(thomas)
+    assert tb.name == jb.name == "thomas" and tb.make_solve is None and jb.make_solve is None
+    assert tb.make_tridiag(None) is thomas
+    g, v = _tile(17, (2,), 5, 6)
+    jcp, tcp = _cps(gs_iters=48, tol=0.0)
+    ref, got = _solve_both(g, v, jcp, tcp, backend=thomas)
+    _assert_solution_close(ref, got, g, v, jcp, tcp)
