@@ -203,53 +203,176 @@ def _random_tiles(gen, lead, m, n):
     return g, v
 
 
-def phase_tridiag(gen, cp):
-    """The tridiag kernel against its plain version at the main path's shapes."""
+def backend_systems(g, v, cp):
+    """The (dl, d, du, b) of the first row and column half-sweeps of the
+    "tridiag" backend's `_sweep_solve` on tiles g (..., M, N) driven by v,
+    captured as the backend hands them to its inner solve."""
+    import dataclasses
+
+    from repro_torch.core.solver import SolveOptions, solve_crossbar
+    from repro_torch.kernels.tridiag import ops
+
+    captured = []
+
+    def capture(*system):
+        captured.append(system)
+        return ops.tridiag(*system)
+
+    solve_crossbar(g, v, dataclasses.replace(cp, gs_iters=1, tol=0.0),
+                   options=SolveOptions(backend=capture))
+    return captured[0], captured[1]
+
+
+def tridiag_bytes(system) -> int:
+    """Bytes a solve must move: each operand's distinct elements read once
+    (a stride-0 axis holds one), x written once."""
     import torch
-    from repro_torch.core import solver
+
+    shape = torch.broadcast_shapes(*(t.shape for t in system))
+    distinct = sum(math.prod(size for size, stride in zip(shape, t.expand(shape).stride())
+                             if stride != 0) for t in system)
+    return 4 * (distinct + math.prod(shape))
+
+
+def phase_tridiag(gen, cp):
+    """The tridiag kernel against its plain version on the "tridiag"
+    backend's own operands (views: stride-0 coefficients, transposed column
+    systems), per-config coefficients, ragged, N = 1, N = 401 (past the
+    on-chip limit) and dense operands; the trace of one call holds only the
+    kernel; times beside the bounds; one layer-1 sweep's device time."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.solver import SolveOptions, solve_crossbar
     from repro_torch.kernels.tridiag import ops, ref
 
-    g, v = _random_tiles(gen, (CHUNK, TILES_L1), M_L1, N_L1)
-    vc = 0.1 * torch.rand(g.shape, generator=gen, device="cuda")
-    row = solver._row_system(g, vc, v, cp)        # N=30 along the rows
-    col = solver._col_system(g, vc, cp)           # N=31 along the columns
+    # Layer 1's chunk as linear_forward hands it over: tiles shared by the
+    # samples (a stride-0 sample axis), one drive per sample and tile.
+    g, _ = _random_tiles(gen, (TILES_L1,), M_L1, N_L1)
+    g = g[None]
+    v = 0.8 * torch.rand((CHUNK, TILES_L1, M_L1), generator=gen, device="cuda")
+    row, col = backend_systems(g, v, cp)
 
-    def diag_dominant(b_count, n):
-        d = 2.0 + torch.rand((b_count, n), generator=gen, device="cuda")
-        off = -0.5 * torch.rand((2, b_count, n), generator=gen, device="cuda")
-        return off[0], d, off[1], torch.randn((b_count, n), generator=gen, device="cuda")
+    # Per-config circuit scalars, the stacked-sweep shape (C, 1, T, M, N).
+    lead = (4,)
+    r_wire = torch.empty(lead, device="cuda").uniform_(5.0, 40.0, generator=gen)
+    cp_c = dataclasses.replace(
+        cp, r_row=r_wire, r_col=r_wire,
+        r_source=torch.empty(lead, device="cuda").uniform_(80.0, 150.0, generator=gen))
+    g_c, _ = _random_tiles(gen, lead + (1, 16), M_L1, N_L1)
+    v_c = 0.8 * torch.rand(lead + (64, 16, M_L1), generator=gen, device="cuda")
+    row_c, col_c = backend_systems(g_c, v_c, cp_c)
 
-    cases = [("row N=30", row), ("col N=31", col),
-             ("ragged B=1003 N=7", diag_dominant(1003, 7)), ("N=1 B=5", diag_dominant(5, 1))]
+    # The Table III 512x512 configuration's layer 1: a 401x120 tile, whose
+    # column systems (N = 401) are past the on-chip limit.
+    g_big, _ = _random_tiles(gen, (1, 2), 401, 120)
+    v_big = 0.8 * torch.rand((16, 2, 401), generator=gen, device="cuda")
+    row_big, col_big = backend_systems(g_big, v_big, cp)
+
+    def diag_dominant(shape):
+        d = 2.0 + torch.rand(shape, generator=gen, device="cuda")
+        off = -0.5 * torch.rand((2,) + shape, generator=gen, device="cuda")
+        return off[0], d, off[1], torch.randn(shape, generator=gen, device="cuda")
+
+    dense = diag_dominant((CHUNK * TILES_L1 * M_L1, N_L1))
+    # Sliced and permuted views: slabs that are not one run of memory.
+    dl_s, d_s, du_s, b_s = diag_dominant((9, 64, 200, 30))
+    strided = (dl_s[:, ::2].permute(1, 0, 2, 3), d_s[:, ::2].permute(1, 0, 2, 3)[..., :1, :],
+               du_s[0, ::2, 0, :][:, None, None, :], b_s[:, ::2].permute(1, 0, 2, 3))
+    cases = [("row N=30 (backend)", row), ("col N=31 (backend)", col),
+             ("row N=30 (C,) per-config", row_c), ("col N=31 (C,) per-config", col_c),
+             ("row N=120 (401x120 tile)", row_big), ("col N=401 (401x120 tile)", col_big),
+             ("ragged B=1003 N=7", diag_dominant((1003, 7))), ("N=1 B=5", diag_dominant((5, 1))),
+             ("dense (825344, 30)", dense), ("sliced and permuted (32, 9, 200, 30)", strided)]
+    lib = ops._lib()
+    built = (lib.tridiag_threads(), lib.tridiag_max_axes(), lib.tridiag_max_slabs(),
+             lib.tridiag_static_smem_bytes())
+    if built != (ops.THREADS, ops.MAX_AXES, ops.MAX_SLABS, ops.STATIC_SMEM_BYTES):
+        raise AssertionError(f"tridiag: the wrapper's block constants disagree with the kernel's {built}")
     max_err = 0.0
-    out = {}
+    plans = {}
     for label, system in cases:
+        shape = torch.broadcast_shapes(*(t.shape for t in system))
+        x_like = torch.empty_like(system[3]) if system[3].shape == shape else torch.empty(shape)
+        layout = ops.kernel_layout(shape, (*system, x_like))
+        plan = plans[label] = ops.launch_plan(*layout, shape[-1])
+        before = ops.launches
         got = ops.tridiag(*system)
         want = ref.tridiag_ref(*system)
         torch.cuda.synchronize()
+        if ops.launches != before + 1:
+            raise AssertionError(f"tridiag {label}: {ops.launches - before} launches, expected 1")
         atol = 1e-6 * float(want.abs().max())
         err = check_close(f"tridiag {label}", got, want, rtol=1e-5, atol=atol)
         max_err = max(max_err, err)
-        log(f"[tridiag] {label}: shape {tuple(want.shape)} max abs err {err:.3g} "
-            f"(rtol 1e-5, atol {atol:.3g})")
+        log(f"[tridiag] {label}: shape {tuple(shape)}, strides "
+            f"{[tuple(t.stride()) for t in system]} -> x {tuple(got.stride())}; merged axes "
+            f"{layout[0]}; plan S={plan.systems} P={plan.slabs} dense_off {plan.dense_off} contig "
+            f"{plan.contig} grid "
+            f"{plan.grid} smem {plan.smem_bytes} B {'on chip' if plan.on_chip else 'workspace'}; "
+            f"max abs err {err:.3g} (rtol 1e-5, atol {atol:.3g})")
+    for label in ("row N=30 (backend)", "col N=31 (backend)", "dense (825344, 30)"):
+        if not plans[label].on_chip:
+            raise AssertionError(f"tridiag {label}: the multipliers left the chip")
+    if plans["col N=401 (401x120 tile)"].on_chip:
+        raise AssertionError("tridiag N=401: expected the workspace instance")
+    if col[3].stride()[-2] != 1 or row[3].stride()[-1] != 1:
+        raise AssertionError("the backend's right-hand sides are not in (..., M, N) order")
 
-    for label, system in cases[:2]:
+    out = {}
+    for label, system in (("row", row), ("col", col)):
+        # No copy and no workspace: the call allocates x and launches one kernel.
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        x = ops.tridiag(*system)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - x.untyped_storage().nbytes()
+        del x
+        kernels = traced_kernels(lambda: ops.tridiag(*system))
+        if len(kernels) != 1 or "tridiag" not in next(iter(kernels)) \
+                or next(iter(kernels.values()))[0] != 1:
+            raise AssertionError(f"tridiag {label}: the trace of one call holds {kernels}")
+        if extra > 2 * 1024 * 1024:
+            raise AssertionError(f"tridiag {label}: {extra} bytes allocated besides x")
+        log(f"[tridiag] {label}: one call's trace holds only {kernel_name(next(iter(kernels)))} "
+            f"(1 launch); nothing allocated besides x ({extra} B)")
+
+    for label, system in (("row N=30 (backend)", row), ("col N=31 (backend)", col),
+                          ("dense (825344, 30)", dense)):
         shape = torch.broadcast_shapes(*(t.shape for t in system))
         n = shape[-1]
-        batch = math.prod(shape[:-1])
-        lanes = [t.expand(shape).reshape(batch, n).t().contiguous() for t in system]
-        flat = [t.expand(shape).reshape(batch, n) for t in system]
-        ms = time_ms(lambda: ops.tridiag_nb(*lanes), reps=20)
-        plain_ms = time_ms(lambda: ref.tridiag_ref(*flat), reps=3)
-        nodes = n * batch
-        bytes_moved = 5 * 4 * nodes          # 4 inputs read once, x written once
+        nodes = math.prod(shape)
+        ms = time_ms(lambda: ops.tridiag(*system), reps=50)
+        dev = device_ms(lambda: ops.tridiag(*system), reps=10)
+        plain_ms = time_ms(lambda: ref.tridiag_ref(*system), reps=3)
+        bytes_moved = tridiag_bytes(system)
         flops = 8 * nodes                    # 6 forward, 2 backward per node
         bound_ms, bound_by = bound_of(bytes_moved, flops)
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          n=n, batch=batch)
-        log(f"[tridiag] {label}: N={n} B={batch}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{bytes_moved / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)")
+        out[label] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, n=n, systems=nodes // n)
+        log(f"[tridiag] time {label}: {nodes // n} systems of N={n}: kernel {ms:.4f} ms "
+            f"(device {shown_ms(dev)}), {bytes_moved / ms / 1e9:.3f} TB/s; plain {plain_ms:.3f} "
+            f"ms; bound {bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP), {bound_ms / ms:.1%} of it")
+
+    # One layer-1 sweep of the backend, on the device: a 48-sweep solve of
+    # the chunk (plus its final row and column solve), over 49.
+    cp48 = dataclasses.replace(cp, gs_iters=SWEEPS_L1, tol=0.0)
+    parts = traced_kernels(lambda: solve_crossbar(g, v, cp48, options=SolveOptions(backend="tridiag")))
+    busy = sum(ms for _, ms in parts.values())
+    if busy:
+        tri = sum(ms for name, (_, ms) in parts.items() if "tridiag" in name)
+        sweep_ms = busy / (SWEEPS_L1 + 1)
+        log(f"[tridiag] layer-1 sweep of the \"tridiag\" backend (256 x 104 tiles of 31x30): "
+            f"device {sweep_ms:.4f} ms a sweep ({busy:.2f} ms for {SWEEPS_L1} sweeps + the "
+            f"final one); tridiag kernel {tri / busy:.1%}, {len(parts)} kernel names")
+        for name, (calls, ms) in sorted(parts.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"[tridiag]   {ms:9.3f} ms {ms / busy:6.1%} {calls:5d} calls  {name[:80]}")
+    else:
+        sweep_ms = None
+        log("[tridiag] layer-1 sweep: the trace holds no device time (not measured)")
+    out["sweep_device_ms"] = sweep_ms
     return max_err, out
 
 
@@ -367,6 +490,7 @@ def near_tie_agreement(label, a, b, *, min_agree=0.99):
 def phase_main_path(tridiag_ops, fused_ops):
     import torch
     from repro_torch.configs.imac_mnist import TOPOLOGY
+    from repro_torch.core import solver
     from repro_torch.core.digital import accuracy, train_mlp
     from repro_torch.core.evaluate import test_imac
     from repro_torch.core.imac import IMACConfig
@@ -385,6 +509,7 @@ def phase_main_path(tridiag_ops, fused_ops):
     for backend in ("tridiag", "fused"):
         tridiag_ops.launches = 0
         fused_ops.launches = 0
+        solver.residual_reads = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = test_imac(params, xte, yte, cfg, n_samples=500, chunk=CHUNK,
@@ -392,6 +517,12 @@ def phase_main_path(tridiag_ops, fused_ops):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         walls[backend] = seconds
+        reads = solver.residual_reads
+        # One read a group of sweeps, per (layer, chunk) under gs_tol.
+        chunks = -(-500 // CHUNK)
+        most = chunks * sum(-(-s // solver.GROUP_SWEEPS) for s in res.sweeps)
+        if backend == "tridiag" and not 0 < reads <= most:
+            raise AssertionError(f"{reads} host reads of the residual, expected 1 to {most}")
         launches[backend] = dict(tridiag=tridiag_ops.launches, gs_fused=fused_ops.launches)
         results[backend] = res
         if list(res.hp) != [13, 4, 3] or list(res.vp) != [4, 3, 1]:
@@ -402,7 +533,8 @@ def phase_main_path(tridiag_ops, fused_ops):
             f"(digital {res.digital_accuracy:.4f}), avg power {res.avg_power:.6f} W, "
             f"latency {res.latency * 1e9:.3f} ns, worst residual {res.worst_residual:.3g} V, "
             f"sweeps per layer {list(res.sweeps)}, {500 / seconds:.1f} samples/s "
-            f"({seconds:.3f} s), launches {launches[backend]}")
+            f"({seconds:.3f} s), launches {launches[backend]}, host reads of the residual "
+            f"{reads} ({reads / (chunks * len(res.sweeps)):.1f} per (layer, chunk))")
     if launches["tridiag"]["tridiag"] == 0 or launches["fused"]["gs_fused"] == 0:
         raise AssertionError(f"a kernel was not launched on the main path: {launches}")
     t, f = results["tridiag"], results["fused"]
@@ -438,15 +570,18 @@ def profile_device(label: str, fn, wall_ms: float, top: int) -> "dict[str, float
 
 def phase_profile(params, xte, yte, cfg, walls):
     """Where the main path's device time goes, per backend."""
+    from repro_torch.core import solver
     from repro_torch.core.evaluate import test_imac
     from repro_torch.core.solver import SolveOptions
 
     for backend in ("tridiag", "fused"):
+        solver.residual_reads = 0
         profile_device(
             f"backend={backend}",
             lambda: test_imac(params, xte, yte, cfg, n_samples=500, chunk=CHUNK,
                               solve_options=SolveOptions(backend=backend)),
             1e3 * walls[backend], top=6)
+        log(f"[profile] backend={backend}: host reads of the residual {solver.residual_reads}")
 
 
 def phase_cpu_vs_card(params, xte, yte, cfg):
@@ -1105,7 +1240,9 @@ def main() -> int:
     phase_long_context(mvm_ops, da_ops)
     phase_serve_cpu_vs_card(mvm_ops)
 
-    row = tri_time["row N=30"]
+    row = tri_time["row N=30 (backend)"]
+    col = tri_time["col N=31 (backend)"]
+    dense = tri_time["dense (825344, 30)"]
     m32 = mvm_time[(32, 4096, 11008)]
     kernels = [
         dict(name="tridiag", route="cuda",
@@ -1113,7 +1250,9 @@ def main() -> int:
              replaces="src/repro/kernels/tridiag/kernel.py:26",
              launches=launches["tridiag"]["tridiag"], max_abs_err=tri_err,
              ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-             bound_by=row["bound_by"], library_ms=None),
+             bound_by=row["bound_by"], library_ms=None,
+             col_ms=col["ms"], col_bound_ms=col["bound_ms"], dense_ms=dense["ms"],
+             dense_bound_ms=dense["bound_ms"], sweep_device_ms=tri_time["sweep_device_ms"]),
         dict(name="gs_fused", route="cuda",
              source="src/repro_torch/kernels/gs_fused/csrc/gs_fused.cu",
              replaces="src/repro/kernels/gs_fused/kernel.py:47",

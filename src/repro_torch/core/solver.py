@@ -26,7 +26,6 @@ import math
 from typing import NamedTuple, Optional, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.backends import SolverBackend, TridiagFn, get_backend
 
@@ -151,18 +150,13 @@ def _align(value, ndim: int, dtype=None, device=None) -> torch.Tensor:
     return v.reshape(tuple(v.shape) + (1,) * (ndim - v.ndim))
 
 
-def _row_system(
-    g: torch.Tensor,
-    vc: torch.Tensor,
-    v_in: torch.Tensor,
-    cp: CircuitParams,
-    g_shunt=None,
-    i_inj=None,
-):
-    """Tridiagonal systems for all rows given column voltages.
+def _row_coeffs(g: torch.Tensor, cp: CircuitParams, g_shunt=None):
+    """Sweep-invariant coefficients (dl, d, du) of the row systems.
 
-    g, vc: (..., M, N); v_in: (..., M). Systems run along N. The
-    off-diagonals are returned as broadcast views of -g_row (read only).
+    g: (..., M, N), at whatever broadcast shape it has (the sweep loop
+    passes it before the sample expand). Systems run along N. d has the
+    broadcast shape of g, the wire chain and `g_shunt`; the off-diagonals
+    are -g_row at its aligned shape (a scalar, or (C, 1, ..., 1)).
     """
     n = g.shape[-1]
     dtype, device = g.dtype, g.device
@@ -180,14 +174,79 @@ def _row_system(
     d = chain + g
     if g_shunt is not None:
         d = d + g_shunt
-    off = torch.broadcast_to(-g_row, g.shape)
+    off = -g_row
+    return off, d, off
+
+
+def _row_drive(g: torch.Tensor, v_in: torch.Tensor, cp: CircuitParams) -> torch.Tensor:
+    """The drivers' current into column 0 of each row, g_source * v_in (..., M)."""
+    return _align(cp.g_source, g.ndim - 1, g.dtype, g.device) * v_in
+
+
+def _row_rhs(g: torch.Tensor, vc: torch.Tensor, drive: torch.Tensor,
+             i_inj=None) -> torch.Tensor:
+    """Right-hand side of the row systems given column voltages (..., M, N)
+    and the drivers' current (`_row_drive`)."""
     b = g * vc
-    # The driver enters column 0 of each row: an out-of-place add.
-    src = _align(cp.g_source, g.ndim - 1, dtype, device) * v_in
-    b = b + F.pad(src[..., None], (0, n - 1))
+    b[..., 0] += drive           # column 0 of each row (b is this function's own)
     if i_inj is not None:
         b = b + i_inj
-    return off, d, off, b
+    return b
+
+
+def _row_system(
+    g: torch.Tensor,
+    vc: torch.Tensor,
+    v_in: torch.Tensor,
+    cp: CircuitParams,
+    g_shunt=None,
+    i_inj=None,
+):
+    """Tridiagonal systems for all rows given column voltages.
+
+    g, vc: (..., M, N); v_in: (..., M). Systems run along N. The
+    off-diagonals are returned as broadcast views of -g_row (read only).
+    """
+    off, d, _ = _row_coeffs(g, cp, g_shunt)
+    off = torch.broadcast_to(off, g.shape)
+    return off, d, off, _row_rhs(g, vc, _row_drive(g, v_in, cp), i_inj)
+
+
+def _col_coeffs(g: torch.Tensor, cp: CircuitParams, g_shunt=None):
+    """Sweep-invariant coefficients (dl, d, du) of the column systems.
+
+    Systems run along M: d is returned as the transposed view (..., N, M)
+    of the (..., M, N) sum it is built as (g_shunt in the untransposed
+    layout); the off-diagonals are -g_col at its aligned shape.
+    """
+    m = g.shape[-2]
+    dtype, device = g.dtype, g.device
+    g_col = _align(cp.g_col, g.ndim, dtype, device)
+    g_tia = _align(cp.g_tia, g.ndim, dtype, device)
+    if m == 1:
+        chain = g_tia
+    else:
+        idx = torch.arange(m, device=device)[:, None]
+        chain = torch.where(
+            idx == 0,
+            g_col,
+            torch.where(idx == m - 1, g_col + g_tia, 2.0 * g_col),
+        )
+    d = chain + g
+    if g_shunt is not None:
+        d = d + g_shunt
+    off = -g_col
+    return off, d.transpose(-1, -2), off
+
+
+def _col_rhs(g: torch.Tensor, vr: torch.Tensor, i_inj=None) -> torch.Tensor:
+    """Right-hand side of the column systems, as the transposed view
+    (..., N, M) of its (..., M, N) layout. The TIA node is grounded: no
+    extra rhs term."""
+    b = g * vr
+    if i_inj is not None:
+        b = b + i_inj
+    return b.transpose(-1, -2)
 
 
 def _col_system(
@@ -202,29 +261,9 @@ def _col_system(
     Transposed view: systems run along M. g, vr: (..., M, N); stamps in
     the untransposed layout. Returns tensors shaped (..., N, M).
     """
-    m = g.shape[-2]
-    dtype, device = g.dtype, g.device
-    gt = g.transpose(-1, -2)     # (..., N, M)
-    vrt = vr.transpose(-1, -2)
-    g_col = _align(cp.g_col, gt.ndim, dtype, device)
-    g_tia = _align(cp.g_tia, gt.ndim, dtype, device)
-    if m == 1:
-        chain = g_tia
-    else:
-        idx = torch.arange(m, device=device)
-        chain = torch.where(
-            idx == 0,
-            g_col,
-            torch.where(idx == m - 1, g_col + g_tia, 2.0 * g_col),
-        )
-    d = chain + gt
-    if g_shunt is not None:
-        d = d + g_shunt.transpose(-1, -2)
-    off = torch.broadcast_to(-g_col, gt.shape)
-    b = gt * vrt  # TIA node is grounded: no extra rhs term.
-    if i_inj is not None:
-        b = b + i_inj.transpose(-1, -2)
-    return off, d, off, b
+    off, d, _ = _col_coeffs(g, cp, g_shunt)
+    off = torch.broadcast_to(off, g.transpose(-1, -2).shape)
+    return off, d, off, _col_rhs(g, vr, i_inj)
 
 
 def solve_crossbar(
@@ -258,6 +297,13 @@ def solve_crossbar(
     return _sweep_solve(g, v_in, cp, backend.make_tridiag(options), stamps)
 
 
+#: Sweeps run between two host reads of the residual under ``tol``.
+GROUP_SWEEPS = 8
+
+#: Host reads of the residual made by `_sweep_solve` in this process.
+residual_reads = 0
+
+
 def _sweep_solve(
     g: torch.Tensor,
     v_in: torch.Tensor,
@@ -265,7 +311,23 @@ def _sweep_solve(
     tridiag: TridiagFn,
     stamps: Optional[Stamps],
 ) -> CrossbarSolution:
-    """The generic sweep loop: batched inner tridiag + SOR in torch."""
+    """The generic sweep loop: batched inner tridiag + SOR in torch.
+
+    The coefficients of both half-sweeps (and the drivers' current) are
+    built once, the coefficients at g's own broadcast shape (before the
+    sample expand), and handed to `tridiag` as broadcast views; only the
+    right-hand sides are rebuilt each half-sweep. The column systems are
+    transposed views, so the column solve writes its x straight into the
+    (..., M, N) layout.
+
+    Under ``tol`` the sweeps run in groups of `GROUP_SWEEPS` with no host
+    read inside a group: each sweep tests ``max(residual) > tol`` on the
+    device, and a sweep that fails the test leaves vc, the residual and
+    the sweep count exactly as they were (its relax factor is 0, and
+    ``vc + 0 * step == vc``). The host reads once a group, so the result
+    and the sweep count are those of a test before every sweep.
+    """
+    global residual_reads
     st = stamps or Stamps()
     m, n = g.shape[-2], g.shape[-1]
     batch = torch.broadcast_shapes(
@@ -273,8 +335,15 @@ def _sweep_solve(
         v_in.shape[:-1],
         *(x.shape[:-2] for x in st.fields() if x is not None),
     )
-    g = g.expand(batch + (m, n))
-    v_in = v_in.expand(batch + (m,))
+    full = batch + (m, n)
+    # g aligned to the batch rank without expanding: the coefficients'
+    # own shape, with (C,) circuit scalars on the right leading axes.
+    g_own = g[(None,) * (len(full) - g.ndim)]
+    rows = [torch.broadcast_to(t, full) for t in _row_coeffs(g_own, cp, st.g_shunt_row)]
+    cols = [torch.broadcast_to(t, batch + (n, m))
+            for t in _col_coeffs(g_own, cp, st.g_shunt_col)]
+    g = g.expand(full)
+    drive = _row_drive(g, v_in.expand(batch + (m,)), cp)
     vc = (
         torch.zeros(g.shape, dtype=g.dtype, device=g.device)
         if st.v_init is None
@@ -283,30 +352,37 @@ def _sweep_solve(
     omega = _align(cp.omega, g.ndim, g.dtype, g.device)
 
     def sweep(vc):
-        dl, d, du, b = _row_system(g, vc, v_in, cp, st.g_shunt_row, st.i_inj_row)
-        vr = tridiag(dl, d, du, b)
-        dl, d, du, b = _col_system(g, vr, cp, st.g_shunt_col, st.i_inj_col)
-        vct = tridiag(dl, d, du, b)
+        vr = tridiag(*rows, _row_rhs(g, vc, drive, st.i_inj_row))
+        vct = tridiag(*cols, _col_rhs(g, vr, st.i_inj_col))
         return vr, vct.transpose(-1, -2)
 
-    def relax(vc):
+    def relax(vc, omega):
         _, vc_gs = sweep(vc)
-        vc_new = vc + omega * (vc_gs - vc)
-        res = torch.amax(torch.abs(vc_new - vc), dim=(-1, -2))
+        # omega * (vc_gs - vc), in the buffer of vc_gs (this loop's own).
+        step = vc_gs.sub_(vc).mul_(omega)
+        vc_new = vc + step
+        res = torch.linalg.vector_norm(vc_new - vc, ord=math.inf, dim=(-1, -2))
         return vc_new, res
 
     residual = torch.full(batch, math.inf, dtype=g.dtype, device=g.device)
     if cp.tol > 0.0:
-        # Early exit on the batch-global max residual, checked before
-        # every sweep as the reference's while_loop does. Reading the
-        # max is one host sync per sweep.
-        sweeps = 0
-        while sweeps < cp.gs_iters and float(torch.max(residual)) > cp.tol:
-            vc, residual = relax(vc)
-            sweeps += 1
+        count = torch.zeros((), dtype=torch.int64, device=g.device)
+        done = sweeps = 0
+        while done < cp.gs_iters:
+            group = min(GROUP_SWEEPS, cp.gs_iters - done)
+            for _ in range(group):
+                active = torch.max(residual) > cp.tol
+                vc, res = relax(vc, omega * active)
+                residual = torch.where(active, res, residual)
+                count += active
+            done += group
+            sweeps, going = torch.stack((count, (torch.max(residual) > cp.tol).long())).tolist()
+            residual_reads += 1
+            if not going:
+                break
     else:
         for _ in range(cp.gs_iters):
-            vc, residual = relax(vc)
+            vc, residual = relax(vc, omega)
         sweeps = int(cp.gs_iters)
     vr, vc = sweep(vc)  # final row solve consistent with converged vc
     i_out = _align(cp.g_tia, vc.ndim - 1, g.dtype, g.device) * vc[..., m - 1, :]

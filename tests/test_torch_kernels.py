@@ -52,6 +52,102 @@ def test_tridiag_ref_broadcasts_operands():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+def _views(kind):
+    """Operands (dl, d, du, b) of one broadcast shape, as views of
+    arange-filled storage (every element's value is its address)."""
+    def arange(*shape):
+        return torch.arange(float(np.prod(shape))).reshape(shape)
+
+    if kind == "backend rows":          # stride-0 samples, scalar off-diagonals
+        d = arange(1, 3, 5, 4)
+        return torch.tensor(-0.5), d, torch.tensor(-0.5), arange(6, 3, 5, 4)
+    if kind == "backend columns":       # transposed views of (..., M, N)
+        d = arange(1, 3, 5, 4).transpose(-1, -2)
+        return torch.tensor(-0.5), d, torch.tensor(-0.5), arange(6, 3, 5, 4).transpose(-1, -2)
+    if kind == "per-config":            # (C, 1, 1, 1) scalars, (N,) coefficient
+        off = arange(2)[:, None, None, None]
+        return off, arange(4), off, arange(2, 3, 5, 4)
+    if kind == "sliced and permuted":
+        b = arange(3, 8, 5, 6)[:, ::2, :, 1::2].permute(1, 0, 2, 3)
+        return arange(5, 3)[None, None], arange(4, 3, 1, 3), arange(3), b
+    if kind == "dense":
+        return arange(7, 4), arange(7, 4), arange(7, 4), arange(7, 4)
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("kind", ["backend rows", "backend columns", "per-config",
+                                  "sliced and permuted", "dense"])
+def test_kernel_layout_addresses_the_broadcast_elements(kind):
+    """The (sizes, strides) handed to the kernel walk exactly the elements
+    of each operand's broadcast view, in order, with no copy."""
+    system = _views(kind)
+    shape = torch.broadcast_shapes(*(t.shape for t in system))
+    x = torch.empty_like(system[3]) if system[3].shape == shape else torch.empty(shape)
+    x.copy_(torch.arange(float(x.numel())).reshape(shape))
+    tensors = (*system, x)
+    sizes, batch_strides, element_strides = tridiag_ops.kernel_layout(shape, tensors)
+    n = shape[-1]
+    assert int(np.prod(sizes)) == int(np.prod(shape[:-1]))
+    for t, bs, es in zip(tensors, batch_strides, element_strides):
+        walked = torch.as_strided(t, sizes + [n], bs + [es], t.storage_offset())
+        assert torch.equal(walked, t.expand(shape).reshape(sizes + [n]))
+    if kind == "dense":
+        assert sizes == [7]
+    if kind == "backend rows":
+        assert sizes == [6, 15] and batch_strides[1] == [0, 4] and batch_strides[0] == [0, 0]
+
+
+def test_kernel_layout_refuses_more_than_six_axes():
+    b = torch.zeros((2,) * 7 + (3,)).permute(6, 5, 4, 3, 2, 1, 0, 7)
+    with pytest.raises(ValueError, match="at most 6"):
+        tridiag_ops.kernel_layout(b.shape, (b, b, b, b, b))
+
+
+def _plan_of(system):
+    shape = torch.broadcast_shapes(*(t.shape for t in system))
+    x = torch.empty_like(system[3]) if system[3].shape == shape else torch.empty(shape, device="meta")
+    return tridiag_ops.launch_plan(*tridiag_ops.kernel_layout(shape, (*system, x)), shape[-1])
+
+
+def _backend_systems_meta(lead, m, n, chunk):
+    """The backend's row and column operands, as `_sweep_solve` builds them,
+    on meta tensors (strides without memory)."""
+    cp = tsolver.CircuitParams()
+    g = torch.empty(lead + (m, n), device="meta")[None]
+    full = (chunk,) + lead + (m, n)
+    vc = torch.empty(full, device="meta")
+    v = torch.empty((chunk,) + lead + (m,), device="meta")
+    rows = [torch.broadcast_to(t, full) for t in tsolver._row_coeffs(g, cp)]
+    rows.append(tsolver._row_rhs(g.expand(full), vc, tsolver._row_drive(g.expand(full), v, cp)))
+    cols = [torch.broadcast_to(t, full[:-2] + (n, m)) for t in tsolver._col_coeffs(g, cp)]
+    cols.append(tsolver._col_rhs(g.expand(full), vc))
+    return rows, cols
+
+
+def test_launch_plan_keeps_the_main_path_on_chip():
+    """Layer 1 (256 x 104 tiles of 31x30): b and d staged, each slab one run
+    of memory, the off-diagonals read at one address; the rows walked
+    element-fastest, the columns system-fastest; on chip up to 8 warps an
+    SM. The 401x120 tile's columns (N = 401) take the workspace."""
+    limit = tridiag_ops.on_chip_limit()
+    assert limit == 228 * 1024 // 4 - 1024 - tridiag_ops.STATIC_SMEM_BYTES
+    rows, cols = _backend_systems_meta((104,), 31, 30, 256)
+    row, col = _plan_of(rows), _plan_of(cols)
+    assert (row.systems, row.slabs, row.spad, row.dense_off) == (64, 1, 65, False)
+    assert row.efast == (0, 1, 0, 1, 1) and row.contig[1:4:2] == (1, 1) and row.on_chip
+    assert row.smem_bytes == 4 * 2 * 30 * 65 and row.grid == 256 * -(-104 * 31 // 64)
+    assert (col.systems, col.slabs, col.spad, col.dense_off) == (30, 2, 61, False)
+    assert col.efast == (0, 0, 0, 0, 0) and col.contig[1:] == (1, 0, 1, 1) and col.on_chip
+    assert col.smem_bytes == 4 * 2 * 31 * 61 and col.grid == 256 * 104 // 2
+    dense = [torch.empty((825_344, 30), device="meta")] * 4
+    plan = _plan_of(dense)
+    assert plan.dense_off and plan.contig == (1,) * 5
+    assert plan.on_chip and plan.smem_bytes == 4 * 4 * 30 * 65
+    rows, cols = _backend_systems_meta((2,), 401, 120, 16)
+    assert not _plan_of(cols).on_chip
+    assert _plan_of(cols).smem_bytes > limit
+
+
 def test_wrappers_refuse_other_devices():
     """No silent path off the CPU: a non-CPU, non-CUDA tensor raises."""
     meta = torch.empty((4, 3), device="meta")
@@ -191,6 +287,80 @@ def test_tridiag_kernel_matches_plain_on_card(cuda, shape):
     torch.cuda.synchronize()
     assert tridiag_ops.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _card_systems(kind, cuda):
+    """The kernel's card cases: the backend's own operands at layer 1 (and
+    with (C,) per-config scalars), the 401x120 tile's columns (N = 401,
+    past the on-chip limit), ragged, N = 1 and dense operands."""
+    import dataclasses
+
+    if kind in ("layer-1 rows", "layer-1 columns", "per-config rows", "per-config columns",
+                "N=401 columns"):
+        cp = tsolver.CircuitParams()
+        if kind.startswith("layer-1"):
+            g, _ = _tile(5, (104,), 31, 30)
+            g, lead = g[None], (256, 104)
+        elif kind.startswith("per-config"):
+            g, _ = _tile(6, (3, 1, 16), 31, 30)
+            r = torch.tensor([5.0, 13.8, 40.0], device=cuda)
+            cp = dataclasses.replace(cp, r_row=r, r_col=2 * r, r_source=10 * r)
+            lead = (3, 64, 16)
+        else:
+            g, _ = _tile(7, (1, 2), 401, 120)
+            lead = (16, 2)
+        m = g.shape[-2]
+        v = np.random.default_rng(8).uniform(0.0, 0.8, lead + (m,)).astype(np.float32)
+        captured = []
+
+        def capture(*system):
+            captured.append(system)
+            return tridiag_ops.tridiag(*system)
+
+        tsolver.solve_crossbar(torch.as_tensor(g, device=cuda), torch.as_tensor(v, device=cuda),
+                               dataclasses.replace(cp, gs_iters=1, tol=0.0),
+                               options=tsolver.SolveOptions(backend=capture))
+        return captured[0] if "rows" in kind else captured[1]
+    if kind == "sliced and permuted":
+        dl, d, du, b = (torch.as_tensor(a, device=cuda) for a in _dd_system(11, (9, 64, 20, 30)))
+        return (dl[:, ::2].permute(1, 0, 2, 3), d[:, ::2].permute(1, 0, 2, 3)[..., :1, :],
+                du[0, ::2, 0, :][:, None, None, :], b[:, ::2].permute(1, 0, 2, 3))
+    shape = {"ragged": (1003, 7), "N=1": (5, 1), "dense": (2, 104 * 31, 30)}[kind]
+    return [torch.as_tensor(a, device=cuda) for a in _dd_system(9, shape)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layer-1 rows", "layer-1 columns", "per-config rows",
+                                  "per-config columns", "N=401 columns", "ragged", "N=1",
+                                  "dense", "sliced and permuted"])
+def test_tridiag_kernel_matches_plain_on_views_on_card(cuda, kind):
+    system = _card_systems(kind, cuda)
+    before = tridiag_ops.launches
+    got = tridiag_ops.tridiag(*system)
+    want = tridiag_ref.tridiag_ref(*system)
+    torch.cuda.synchronize()
+    assert tridiag_ops.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    if kind == "layer-1 columns":
+        assert got.transpose(-1, -2).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layer-1 rows", "layer-1 columns"])
+def test_tridiag_kernel_launch_makes_no_copy_on_card(cuda, kind):
+    """One call on the backend's views is one device kernel: no operand
+    copy, no plain-version fallback."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    system = _card_systems(kind, cuda)
+    tridiag_ops.tridiag(*system)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tridiag_ops.tridiag(*system)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "tridiag" in kernels[0].key and kernels[0].count == 1
 
 
 @pytest.mark.cuda

@@ -6,6 +6,8 @@ plain version on CPU tensors). Tolerance: rtol=1e-5 on i_out, vc and
 power (the arithmetic is the same float32 sequence), and equal sweep
 counts under the ``tol`` early exit.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -259,3 +261,92 @@ def test_callable_backend_matches_reference():
     jcp, tcp = _cps(gs_iters=48, tol=0.0)
     ref, got = _solve_both(g, v, jcp, tcp, backend=thomas)
     _assert_solution_close(ref, got, g, v, jcp, tcp)
+
+
+def _split_cases():
+    """(g, v, vc, stamps, per-config cp) cases: plain, stamps, (C,) scalars."""
+    g, v = _tile(51, (2,), 4, 6)
+    vc = np.random.default_rng(52).uniform(0.0, 0.8, g.shape).astype(np.float32)
+    jcp, tcp = _cps()
+    yield "plain", g, v, vc, (None, None), (jcp, tcp)
+    jst, tst = _stamps(53, 4, 6)
+    yield "stamps", g, v, vc, (jst, tst), (jcp, tcp)
+    r = np.asarray([5.0, 40.0], np.float32)
+    rs = np.asarray([80.0, 150.0], np.float32)
+    kw = dict(r_row=r, r_col=r * 2, r_source=rs, r_tia=rs / 10)
+    yield ("per-config", g, v, vc, (None, None),
+           (jsolver.CircuitParams(**{k: jnp.asarray(x) for k, x in kw.items()}),
+            tsolver.CircuitParams(**{k: torch.as_tensor(x) for k, x in kw.items()})))
+
+
+@pytest.mark.parametrize("case", ["plain", "stamps", "per-config"])
+def test_split_assembly_matches_reference_systems(case):
+    """Sweep-invariant coefficients + per-sweep right-hand side, broadcast
+    to the systems' shape, equal the reference's `_row_system` and
+    `_col_system`, and the port's compositions return them."""
+    _, g, v, vc, (jst, tst), (jcp, tcp) = next(c for c in _split_cases() if c[0] == case)
+    fields = ("g_shunt_row", "i_inj_row", "g_shunt_col", "i_inj_col")
+    jf = {k: getattr(jst, k) if jst else None for k in fields}
+    tf = {k: getattr(tst, k) if tst else None for k in fields}
+    g_t, v_t, vc_t = map(torch.as_tensor, (g, v, vc))
+    want_row = jsolver._row_system(jnp.asarray(g), jnp.asarray(vc), jnp.asarray(v), jcp,
+                                   jf["g_shunt_row"], jf["i_inj_row"])
+    want_col = jsolver._col_system(jnp.asarray(g), jnp.asarray(vc), jcp,
+                                   jf["g_shunt_col"], jf["i_inj_col"])
+    coeffs = tsolver._row_coeffs(g_t, tcp, tf["g_shunt_row"])
+    rhs = tsolver._row_rhs(g_t, vc_t, tsolver._row_drive(g_t, v_t, tcp), tf["i_inj_row"])
+    split_row = [torch.broadcast_to(t, rhs.shape) for t in (*coeffs, rhs)]
+    coeffs = tsolver._col_coeffs(g_t, tcp, tf["g_shunt_col"])
+    rhs = tsolver._col_rhs(g_t, vc_t, tf["i_inj_col"])
+    split_col = [torch.broadcast_to(t, rhs.shape) for t in (*coeffs, rhs)]
+    composed_row = tsolver._row_system(g_t, vc_t, v_t, tcp, tf["g_shunt_row"], tf["i_inj_row"])
+    composed_col = tsolver._col_system(g_t, vc_t, tcp, tf["g_shunt_col"], tf["i_inj_col"])
+    for got, again, want in ((split_row, composed_row, want_row),
+                             (split_col, composed_col, want_col)):
+        for a, b, w in zip(got, again, want):
+            assert tuple(a.shape) == tuple(b.shape) == w.shape
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(b.numpy(), np.asarray(w))
+    # The right-hand side of the column systems is the transposed view of
+    # an (..., M, N) tensor: the column solve writes x in that layout.
+    assert rhs.transpose(-1, -2).is_contiguous()
+
+
+def _max_residuals(g, v, tcp, sweeps):
+    """The batch-global max residual after each of 1..sweeps sweeps."""
+    return [float(torch.max(tsolver.solve_crossbar(
+        torch.as_tensor(g), torch.as_tensor(v),
+        tsolver.CircuitParams(gs_iters=k, omega=tcp.omega, tol=0.0)).residual))
+        for k in range(1, sweeps + 1)]
+
+
+@pytest.mark.parametrize("stop", [1, 5, 8, 16, None])
+def test_grouped_early_exit_matches_reference(stop):
+    """Under tol the sweeps run in groups with one host read a group; the
+    sweep count and the solution are the reference's (and bitwise those of
+    a fixed budget of that many sweeps), at tolerances that stop on sweep
+    1, mid-group, at a group's end, one group later, and never."""
+    k = tsolver.GROUP_SWEEPS
+    assert k == 8
+    g, v = _tile(61, (3,), 6, 5)
+    budget = 20                   # not a multiple of the group: a short last group
+    _, tcp = _cps()
+    if stop is None:
+        tol = 1e-30
+    else:
+        r = _max_residuals(g, v, tcp, stop)
+        # The first sweep whose residual falls to tol is `stop`.
+        assert r[-1] < min(r[:-1], default=math.inf)
+        tol = math.sqrt(r[-1] * min(r[:-1])) if stop > 1 else 2 * r[0]
+    jcp, tcp = _cps(gs_iters=budget, tol=tol)
+    before = tsolver.residual_reads
+    ref, got = _solve_both(g, v, jcp, tcp)
+    reads = tsolver.residual_reads - before
+    want = budget if stop is None else stop
+    assert int(ref.sweeps) == want
+    _assert_solution_close(ref, got, g, v, jcp, tcp)
+    assert reads == -(-want // k)
+    fixed = tsolver.solve_crossbar(torch.as_tensor(g), torch.as_tensor(v),
+                                   tsolver.CircuitParams(gs_iters=want, tol=0.0))
+    for field in ("vc", "vr", "i_out", "residual"):
+        assert torch.equal(getattr(got, field), getattr(fixed, field)), field
